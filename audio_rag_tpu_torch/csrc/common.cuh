@@ -1,0 +1,61 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+//
+// Every kernel is reached through a plain C entry point (extern "C") that
+// takes raw device pointers, sizes and the CUDA stream, launches on that
+// stream, and returns cudaGetLastError() as an int so the Python wrapper
+// (audio_rag_tpu_torch/ops/kernels.py) can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace arp {
+
+// dtype codes shared with the Python wrappers
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);  // round to nearest even, as torch's .bfloat16()
+}
+
+// round an f32 to the nearest bf16 and back (x rounding of matmul_q8w)
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// byte j of a packed 32-bit word as a signed int8 value
+__device__ __forceinline__ float s8(uint32_t w, int j) {
+  return static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xffu));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory when needed.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace arp
