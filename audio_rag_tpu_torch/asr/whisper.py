@@ -6,10 +6,12 @@ greedy decode of all windows of the batch at once → strip special tokens,
 no-speech gate, segments → interpolated word times. The parameters come
 from the committed asset for "tiny-synth" and from a seeded init for the
 other presets; ``compute_type="bfloat16"`` stores and computes in bf16;
-``decoder_int8`` and ``cross_kv_int8`` switch on the int8 decode paths
-(and with them the ``matmul_q8w`` and ``decode_cross_attention_q8``
-kernels). Not ported here: VAD, temperature fallback, language detection,
-beam and speculative decoding, DTW word timestamps.
+the quantization switches of ``ASRConfig`` pick the decode profile as the
+JAX backend does (int4 beats int8; ``lm_head_int4`` only with
+``decoder_int8`` and without ``decoder_int4``; ``self_kv_int8``), and with
+it the quantized decode kernels. Not ported here: VAD, temperature
+fallback, language detection, beam and speculative decoding, DTW word
+timestamps.
 """
 
 from __future__ import annotations
@@ -65,6 +67,16 @@ class WhisperASR:
         self.tokens = SpecialTokens.for_dims(self.dims)
         self.dtype = (torch.bfloat16 if self.config.compute_type == "bfloat16"
                       else torch.float32)
+        c = self.config
+        #: decode profile: 0 = off, else the bits of the cross K/V, of the
+        #: decoder's weight matmuls and of the logits head (None = as the
+        #: decoder's)
+        self.cross_kv_bits = 4 if c.cross_kv_int4 else (
+            8 if c.cross_kv_int8 else 0)
+        self.decoder_bits = 4 if c.decoder_int4 else (
+            8 if c.decoder_int8 else 0)
+        self.lm_head_bits = (4 if self.decoder_bits == 8 and c.lm_head_int4
+                             else None)
         self._params = None
         self._params_q8 = None
         self.timings: dict[str, float] = {}
@@ -98,8 +110,9 @@ class WhisperASR:
             params = init_whisper(self.dims, seed=self.config.seed,
                                   device=self.device, dtype=self.dtype)
         self._params = params
-        if self.config.decoder_int8:
-            self._params_q8 = quantize_decoder_weights(params, self.dims)
+        if self.decoder_bits:
+            self._params_q8 = quantize_decoder_weights(
+                params, self.dims, self.decoder_bits, self.lm_head_bits)
 
     # -- public API --------------------------------------------------------
     def _max_new(self) -> int:
@@ -192,8 +205,10 @@ class WhisperASR:
             self._params, self.dims, enc,
             torch.from_numpy(prompt).to(self.device), max_new, st.eot,
             dtype=self.dtype, no_speech_id=st.no_speech,
-            cross_kv_quantize=self.config.cross_kv_int8,
-            decoder_q8=self._params_q8)
+            cross_kv_quantize=bool(self.cross_kv_bits),
+            cross_kv_bits=self.cross_kv_bits or 8,
+            decoder_q8=self._params_q8,
+            self_kv_int8=self.config.self_kv_int8)
         tokens = toks.cpu().numpy()
         avg_lp = avg_lp.cpu().numpy()
         no_speech = no_speech.cpu().numpy()

@@ -30,10 +30,22 @@ class ASRConfig:
     window_batch_size: int = 8
     #: cap on generated tokens per window (None = the preset's default)
     max_decode_tokens: int | None = None
-    #: int8 cross-attention K/V (decode cross kernel)
+    #: int8 cross-attention K/V (int8 decode cross kernel)
     cross_kv_int8: bool = False
+    #: int4 cross-attention K/V, per-channel scales (int4 decode cross
+    #: kernel); takes precedence over ``cross_kv_int8``
+    cross_kv_int4: bool = False
     #: int8 decode-loop weight matmuls (int8-weight matmul kernel)
     decoder_int8: bool = False
+    #: int4 decode-loop weight matmuls, group-wise scales (int4-weight
+    #: matmul kernel); takes precedence over ``decoder_int8``
+    decoder_int4: bool = False
+    #: with ``decoder_int8`` and without ``decoder_int4``: int4 for the
+    #: logits head only
+    lm_head_int4: bool = False
+    #: int8 self-attention cache with per-position scales (int8 decode self
+    #: kernel); greedy decoding only, as the port's is
+    self_kv_int8: bool = False
     no_speech_threshold: float = 0.6
     logprob_threshold: float = -1.0
     #: seed of the weights of presets without a committed asset

@@ -9,15 +9,16 @@ widened to f32 before the product (exact, like XLA's
 ``preferred_element_type=f32``); on CUDA a bf16 weight matmul runs on the
 bf16 tensor cores (f32 accumulate, one rounding of the product).
 
-Two routes go to the port's hand-written kernels
+Three routes go to the port's hand-written kernels
 (:mod:`audio_rag_tpu_torch.ops.kernels`): :func:`_attend` sends unmasked
-attention with D ≤ 128 to ``flash_attention`` and :func:`linear_q8` sends
-int8-weight matmuls to ``matmul_q8w``. Both wrappers use their plain
-versions for CPU tensors.
+attention with D ≤ 128 to ``flash_attention``, and :func:`linear_q8` sends
+int8-weight matmuls to ``matmul_q8w`` and int4-weight ones to
+``matmul_q4w``. The wrappers use their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -32,6 +33,9 @@ __all__ = [
     "mm_f32",
     "linear",
     "quantize_linear",
+    "q4_tiles",
+    "q4_group",
+    "quantize_linear_q4",
     "linear_q8",
     "layer_norm",
     "gelu",
@@ -83,17 +87,70 @@ def quantize_linear(w: torch.Tensor) -> Params:
     return {"w8": w8, "s": s}
 
 
+def q4_tiles(din: int, cap: int = 2048) -> tuple[int, int] | None:
+    """(group, din_tile) that the JAX package's TPU kernel would take for
+    ``din``, or None. Only its group is used here: it fixes the stored int4
+    format (:func:`q4_group`), so both packages quantize alike; the tile
+    rules (din_tile a multiple of 256 and of 8·group, group | din_tile |
+    din, the largest group ≤ 128 first, then the largest tile) do not bind
+    the CUDA kernel."""
+    for group in (128, 112, 96, 80, 64, 48, 32, 16):
+        step = math.lcm(256, 8 * group)
+        best = None
+        for t in range(step, min(din, cap) + 1, step):
+            if din % t == 0:
+                best = t
+        if best is not None:
+            return group, best
+    return None
+
+
+def q4_group(din: int) -> int:
+    """Quantization group of int4 weights along ``din``: the
+    :func:`q4_tiles` choice, else the largest even divisor ≤ 128 (80 for
+    din 1280, 128 for 5120 and for 128, 64 for 512)."""
+    tiles = q4_tiles(din)
+    if tiles is not None:
+        return tiles[0]
+    if din % 2:
+        raise ValueError(f"int4 packing needs an even din, got {din}")
+    return next(g for g in (128, 96, 64, 48, 32, 16, 8, 4, 2)
+                if din % g == 0)
+
+
+def quantize_linear_q4(w: torch.Tensor) -> Params:
+    """Group-wise symmetric int4 of a (din, dout) weight: {"w4" (din/2,
+    dout) int8 with din rows 2r and 2r + 1 in the low and high nibble of
+    byte row r, "s" (din/group, dout) f32}, group = :func:`q4_group`. Same
+    rounding and clipping as the JAX package, so both give identical
+    trees."""
+    w = w.float()
+    din, dout = w.shape
+    group = q4_group(din)
+    g = w.reshape(din // group, group, dout)
+    s = torch.clamp(torch.amax(torch.abs(g), dim=1), min=1e-9) / 7.0
+    q = torch.clamp(torch.round(g / s[:, None, :]), -7, 7).to(torch.int32)
+    q = q.reshape(din, dout)
+    packed = (q[0::2] & 0x0F) | (q[1::2] << 4)
+    return {"w4": packed.to(torch.int8), "s": s}
+
+
 def linear_q8(p: Params, p8: Params, x: torch.Tensor,
               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """:func:`linear` with int8 weights ``p8`` ({"w8", "s"}) and the bias
-    from ``p``, through the ``matmul_q8w`` kernel (x rounded to bf16, f32
-    sums, scale on the output)."""
+    """:func:`linear` with quantized weights ``p8`` and the bias from
+    ``p``, the kernel picked by key: int8 ({"w8", "s"}) through
+    ``matmul_q8w`` (scale on the output), int4 ({"w4", "s"}) through
+    ``matmul_q4w`` (group scales on the weights). x is rounded to bf16 and
+    the products summed in f32."""
     *lead, din = x.shape
     rows = x.reshape(-1, din)
     if rows.dtype not in (torch.float32, torch.bfloat16):
         rows = rows.float()
-    y = kernels.matmul_q8w(rows.contiguous(), p8["w8"], p8["s"])
-    y = y.reshape(*lead, p8["w8"].shape[1])
+    if "w4" in p8:
+        y = kernels.matmul_q4w(rows.contiguous(), p8["w4"], p8["s"])
+    else:
+        y = kernels.matmul_q8w(rows.contiguous(), p8["w8"], p8["s"])
+    y = y.reshape(*lead, y.shape[-1])
     if "b" in p:
         y = y + p["b"].float()
     return y.to(dtype)

@@ -3,17 +3,21 @@
 Counterpart of ``audio_rag_tpu/models/whisper.py``: the same param tree
 (per-layer blocks stacked on a leading L axis), the same presets, special
 tokens and char codec, and the same functions for the greedy path:
-:func:`encode`, :func:`precompute_cross_kv` (bf16/f32 and int8),
+:func:`encode`, :func:`precompute_cross_kv` (bf16/f32, int8 and int4),
 :func:`decoder_forward` (teacher-forced priming, no cross weights),
-:func:`_cross_with_kv`, :func:`quantize_decoder_weights` (8 bits),
-:func:`decoder_step` (greedy) and :func:`greedy_decode`. ``lax.scan`` and
-``while_loop`` become Python loops; KV caches are updated in place.
+:func:`_cross_with_kv`, :func:`quantize_decoder_weights` (8 or 4 bits, or
+int8 blocks with an int4 logits head), :func:`quantize_self_cache`,
+:func:`decoder_step` (greedy, bf16/f32 or int8 self cache) and
+:func:`greedy_decode`. ``lax.scan`` and ``while_loop`` become Python
+loops; KV caches are updated in place.
 
 Kernel routes on CUDA (plain versions on the CPU, see ``ops/kernels.py``):
-the encoder's self-attention goes to ``flash_attention``; with int8 cross
-K/V the decode loop's cross-attention (≤ 8 queries per row) goes to
-``decode_cross_attention_q8``; with ``quantize_decoder_weights`` the decode
-loop's weight matmuls go to ``matmul_q8w``.
+the encoder's self-attention goes to ``flash_attention``; with int8 or
+int4 cross K/V the decode loop's cross-attention (≤ 8 queries per row)
+goes to ``decode_cross_attention_q8`` or ``_q4``; with
+``quantize_decoder_weights`` the decode loop's weight matmuls go to
+``matmul_q8w`` or ``matmul_q4w``; with the int8 self cache the decode
+loop's self-attention goes to ``decode_self_attention_q8``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from audio_rag_tpu_torch.models.layers import (
     mlp,
     mm_f32,
     quantize_linear,
+    quantize_linear_q4,
     sinusoid_positions,
     take_layer,
 )
@@ -53,6 +58,8 @@ __all__ = [
     "precompute_cross_kv",
     "decoder_forward",
     "quantize_decoder_weights",
+    "pack_self_scales",
+    "quantize_self_cache",
     "decoder_step",
     "greedy_decode",
 ]
@@ -262,27 +269,63 @@ def encode(params: Params, dims: WhisperDims, mel: torch.Tensor,
 
 # -- decoder ---------------------------------------------------------------
 
+# The JAX package divides by these constants inside compiled code (the
+# lax.map of precompute_cross_kv, the decode while_loop), where XLA turns a
+# division by a constant into a product with its f32 reciprocal; the port
+# multiplies by the same reciprocals (exact f32 values held as Python
+# floats) to produce the same bits.
+_INV127 = float(torch.tensor(1.0) / 127.0)
+_INV7 = float(torch.tensor(1.0) / 7.0)
+
+
 def _quant8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, H, Ta, D) → int8 (B, H, D, Ta) transposed + per-(B, H) f32 scale
     (B, H, 1, 1), exactly the JAX package's rounding."""
     xf = x.float()
     amax = torch.amax(torch.abs(xf), dim=(2, 3), keepdim=True)
-    scale = torch.clamp(amax, min=1e-9) / 127.0
+    scale = torch.clamp(amax, min=1e-9) * _INV127
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q.transpose(2, 3).contiguous(), scale
 
 
+def _quant4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, Ta, D) → int4 (B, H, D/2, Ta) nibble-packed along D in
+    half-split order (byte row r: dim r in the low nibble, r + D/2 in the
+    high one) + per-channel f32 scales (B, H, 1, D), exactly the JAX
+    package's rounding and packing."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=2, keepdim=True)
+    scale = torch.clamp(amax, min=1e-9) * _INV7
+    q = torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int32)
+    qt = q.transpose(2, 3)  # (B, H, D, Ta)
+    half = qt.shape[2] // 2
+    packed = (qt[:, :, :half] & 0x0F) | (qt[:, :, half:] << 4)
+    return packed.to(torch.int8).contiguous(), scale
+
+
+def _unpack_kv4(x4: torch.Tensor) -> torch.Tensor:
+    """(…, D/2, Ta) half-split packed int4 → (…, D, Ta) int8 values (the
+    teacher-forced path's inverse of :func:`_quant4`; the decode kernel
+    unpacks in registers instead)."""
+    return torch.cat(kernels.int4_nibbles(x4), dim=-2).to(torch.int8)
+
+
 def precompute_cross_kv(params: Params, dims: WhisperDims, enc: torch.Tensor,
                         dtype: torch.dtype = torch.bfloat16,
-                        quantize: bool = False):
+                        quantize: bool = False, bits: int = 8):
     """Per-layer cross K/V from encoder states.
 
     ``quantize=False``: (k, v), each (L, B, H, Ta, D) in ``dtype``.
-    ``quantize=True``: (k8, v8, k_scale, v_scale) with int8 K/V TRANSPOSED
-    to (L, B, H, D, Ta) and per-(L, B, H) f32 scales (L, B, H, 1, 1) — the
-    layout the decode cross kernel reads; quantized layer by layer so the
-    f32 temporaries never exist for all layers at once.
+    ``quantize=True, bits=8``: (k8, v8, k_scale, v_scale) with int8 K/V
+    TRANSPOSED to (L, B, H, D, Ta) and per-(L, B, H) f32 scales
+    (L, B, H, 1, 1). ``bits=4``: int4 K/V nibble-packed along D to
+    (L, B, H, D/2, Ta) int8 with per-channel scales (L, B, H, 1, D). These
+    are the layouts the decode cross kernels read; K/V are quantized layer
+    by layer so the f32 temporaries never exist for all layers at once.
     """
+    if quantize and bits not in (8, 4):
+        raise ValueError(f"cross-KV bits must be 8 or 4, got {bits}")
+    quant = _quant8 if bits == 8 else _quant4
     head_dim = dims.n_text_state // dims.n_text_head
     B, Ta, _ = enc.shape
     blocks = params["decoder"]["blocks"]
@@ -294,7 +337,7 @@ def precompute_cross_kv(params: Params, dims: WhisperDims, enc: torch.Tensor,
         v = linear(cross["v"], enc, dtype).reshape(
             B, Ta, dims.n_text_head, head_dim).transpose(1, 2)
         if quantize:
-            k, v = _quant8(k), _quant8(v)
+            k, v = quant(k), quant(v)
         ks.append(k)
         vs.append(v)
     if not quantize:
@@ -311,15 +354,18 @@ def _cross_with_kv(p: Params, x: torch.Tensor, k: torch.Tensor,
     """Cross-attention against precomputed K/V of one layer.
 
     bf16/f32 K/V arrive as (B, H, Ta, D); int8 K/V arrive TRANSPOSED as
-    (B, H, D, Ta) with per-(B, H) f32 scales. The int8 case with ≤ 8
-    queries per row (the decode loop; beams would ride the same axis) goes
-    to the ``decode_cross_attention_q8`` kernel; longer int8 query blocks
-    (teacher-forced) take the einsum with the scales folded into q and the
-    output, as in the JAX package.
+    (B, H, D, Ta) with per-(B, H) f32 scales; int4 K/V arrive packed as
+    (B, H, D/2, Ta) int8 with per-channel (B, H, 1, D) scales, told apart
+    from int8 by the halved axis. With ≤ 8 queries per row (the decode
+    loop; beams would ride the same axis) quantized K/V go to the
+    ``decode_cross_attention_q8`` or ``_q4`` kernel; longer query blocks
+    (teacher-forced) take the einsum on the unpacked values with the scales
+    folded into q and the output, as in the JAX package.
     """
     B, T, d_model = x.shape
     head_dim = d_model // n_heads
     quantized = k.dtype == torch.int8
+    packed4 = quantized and k.shape[-2] == head_dim // 2
     xn = layer_norm(p["ln_cross"], x)
     if q8 is None:
         q = linear(p["cross"]["q"], xn, dtype)
@@ -334,12 +380,15 @@ def _cross_with_kv(p: Params, x: torch.Tensor, k: torch.Tensor,
         return linear_q8(p["cross"]["o"], q8["cross_o"], o, dtype)
 
     if quantized and T <= 8:
-        o = kernels.decode_cross_attention_q8(q.contiguous(), k, v,
-                                              k_scale, v_scale)
+        kern = (kernels.decode_cross_attention_q4 if packed4
+                else kernels.decode_cross_attention_q8)
+        o = kern(q.contiguous(), k, v, k_scale, v_scale)
         o = o.to(dtype).transpose(1, 2).reshape(B, T, d_model)
         return out_proj(o)
 
     if quantized:
+        if packed4:
+            k, v = _unpack_kv4(k), _unpack_kv4(v)
         q = (q.float() * k_scale).to(dtype)
         logits = mm_f32(q * scale, k.to(dtype))
         probs = torch.softmax(logits, dim=-1)
@@ -364,7 +413,7 @@ def decoder_forward(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Teacher-forced decoder pass (the prompt-priming path).
 
-    ``cross_kv`` is (k, v) or the int8 quadruple of
+    ``cross_kv`` is (k, v) or the int8 or int4 quadruple of
     :func:`precompute_cross_kv`. With ``self_cache`` ((L, B, H, C, hd)
     each) the new K/V are written in place at ``pos_offset``. Returns
     (logits (B, T, vocab) f32, the cache or None).
@@ -403,31 +452,83 @@ def decoder_forward(
     return logits, self_cache
 
 
-def quantize_decoder_weights(params: Params, dims: WhisperDims) -> Params:
-    """Per-out-channel int8 of every weight matrix the decode loop re-reads
-    each token (attention, cross q/o, MLP linears and the logits head),
-    as per-layer lists like the JAX package's ``bits=8`` tree. The logits
-    head (token table transposed) pads its vocab axis to a multiple of 128
-    with zero columns; :func:`decoder_step` slices ``[:, :n_vocab]``."""
+def quantize_decoder_weights(params: Params, dims: WhisperDims,
+                             bits: int = 8,
+                             lm_head_bits: int | None = None) -> Params:
+    """Per-out-channel int8 (``bits=8``, {"w8", "s"} leaves) or group-wise
+    int4 (``bits=4``, {"w4", "s"}) of every weight matrix the decode loop
+    re-reads each token (attention, cross q/o, MLP linears and the logits
+    head), as per-layer lists like the JAX package's tree.
+    ``lm_head_bits`` overrides ``bits`` for the logits head only (the
+    int8-blocks + int4-head profile). The head (token table transposed)
+    pads its vocab axis to a multiple of 128 with zero columns;
+    :func:`decoder_step` slices ``[:, :n_vocab]``."""
+    lm_bits = bits if lm_head_bits is None else lm_head_bits
+    for what, b in (("bits", bits), ("lm_head_bits", lm_bits)):
+        if b not in (8, 4):
+            raise ValueError(f"{what} must be 8 or 4, got {b}")
+    quant = quantize_linear if bits == 8 else quantize_linear_q4
     dec = params["decoder"]
     blocks = []
     for i in range(dims.n_text_layer):
         p = take_layer(dec["blocks"], i)
         blocks.append({
-            "attn_q": quantize_linear(p["attn"]["q"]["w"]),
-            "attn_k": quantize_linear(p["attn"]["k"]["w"]),
-            "attn_v": quantize_linear(p["attn"]["v"]["w"]),
-            "attn_o": quantize_linear(p["attn"]["o"]["w"]),
-            "cross_q": quantize_linear(p["cross"]["q"]["w"]),
-            "cross_o": quantize_linear(p["cross"]["o"]["w"]),
-            "mlp_up": quantize_linear(p["mlp"]["up"]["w"]),
-            "mlp_down": quantize_linear(p["mlp"]["down"]["w"]),
+            "attn_q": quant(p["attn"]["q"]["w"]),
+            "attn_k": quant(p["attn"]["k"]["w"]),
+            "attn_v": quant(p["attn"]["v"]["w"]),
+            "attn_o": quant(p["attn"]["o"]["w"]),
+            "cross_q": quant(p["cross"]["q"]["w"]),
+            "cross_o": quant(p["cross"]["o"]["w"]),
+            "mlp_up": quant(p["mlp"]["up"]["w"]),
+            "mlp_down": quant(p["mlp"]["down"]["w"]),
         })
     table = dec["tok_emb"]["table"]
     vocab = table.shape[0]
     vocab_pad = -(-vocab // 128) * 128
     wt = F.pad(table.float().t(), (0, vocab_pad - vocab))
-    return {"blocks": blocks, "logits": quantize_linear(wt)}
+    head = quantize_linear if lm_bits == 8 else quantize_linear_q4
+    return {"blocks": blocks, "logits": head(wt)}
+
+
+def pack_self_scales(ks: torch.Tensor, vs: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """The (..., Cp, 128) packed operand of
+    ``kernels.decode_self_attention_q8`` from per-position scales ``ks``,
+    ``vs`` (..., H, Cp) f32 and ``valid`` (..., Cp) bool: K scales in lanes
+    [0, H), V scales in [H, 2H), the additive mask (0 valid, -1e30 not) in
+    lane 2H, zeros past it. The JAX package's format, so one self cache
+    feeds both packages."""
+    *lead, H, Cp = ks.shape
+    out = torch.zeros((*lead, Cp, kernels.SELF_LANES), dtype=torch.float32,
+                      device=ks.device)
+    out[..., :H] = ks.transpose(-1, -2)
+    out[..., H:2 * H] = vs.transpose(-1, -2)
+    out[..., 2 * H] = torch.where(valid, 0.0, -1e30)
+    return out
+
+
+def quantize_self_cache(sk: torch.Tensor, sv: torch.Tensor, n_valid: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A primed (L, B, H, C, hd) self cache → the int8 decode form
+    (k8 (L, B, H, hd, Cp) int8, v8 likewise, packed scales (L, B, Cp, 128)
+    f32) with per-position scales (amax over hd / 127, 1 where the amax is
+    0), C padded up to Cp, a multiple of 128; positions ≥ ``n_valid`` are
+    masked. Exactly the JAX package's rounding."""
+    L, B, H, C, hd = sk.shape
+    Cp = -(-C // 128) * 128
+
+    def q(x):
+        xf = x.float()
+        a = torch.amax(torch.abs(xf), dim=-1)  # (L, B, H, C)
+        s = torch.where(a > 0, a / 127.0, 1.0)
+        x8 = torch.round(xf / s[..., None]).to(torch.int8)
+        x8 = F.pad(x8.transpose(3, 4), (0, Cp - C)).contiguous()
+        return x8, F.pad(s, (0, Cp - C))
+
+    k8, ks = q(sk)
+    v8, vs = q(sv)
+    valid = (torch.arange(Cp, device=sk.device) < n_valid).expand(L, B, Cp)
+    return k8, v8, pack_self_scales(ks, vs, valid)
 
 
 def decoder_step(
@@ -436,28 +537,37 @@ def decoder_step(
     tok: torch.Tensor,  # (B, 1) int
     cross_kv,
     pos: int,
-    self_cache: tuple[torch.Tensor, torch.Tensor],  # (L, B, H, C, hd) ×2
+    self_cache: tuple[torch.Tensor, ...],
     dtype: torch.dtype = torch.bfloat16,
     q8: Params | None = None,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    self_kv_int8: bool = False,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """One greedy decode step with the layer loop unrolled. Writes this
     step's K/V into ``self_cache`` IN PLACE at ``pos``. With ``q8`` the
-    weight matmuls read int8 weights through ``matmul_q8w``. Returns
-    (logits (B, vocab) f32, self_cache)."""
+    weight matmuls read int8 or int4 weights through ``matmul_q8w`` or
+    ``matmul_q4w``. ``self_cache`` is (sk, sv), each (L, B, H, C, hd), or
+    with ``self_kv_int8`` the triple of :func:`quantize_self_cache`: the
+    new position's K/V are then quantized on write (amax over hd, from the
+    projections after their cast to ``dtype``), its packed scale row is
+    written with the mask lane 0 (valid), and the self-attention reads the
+    int8 cache through ``decode_self_attention_q8``. Returns (logits
+    (B, vocab) f32, self_cache)."""
     dec = params["decoder"]
     quantized = len(cross_kv) == 4
     ck, cv = cross_kv[0], cross_kv[1]
     ks, vs = (cross_kv[2], cross_kv[3]) if quantized else (None, None)
-    sk, sv = self_cache
     B = tok.shape[0]
     H = dims.n_text_head
     hd = dims.n_text_state // H
-    C = sk.shape[3]
     device = tok.device
 
     x = dec["tok_emb"]["table"].to(dtype)[tok]  # (B, 1, d)
     x = x + dec["pos_emb"][pos:pos + 1].to(dtype)
-    mask = torch.arange(C, device=device) < pos + 1  # (C,)
+    if self_kv_int8:
+        sk, sv, scp = self_cache  # the packed scales carry the mask
+    else:
+        sk, sv = self_cache
+        mask = torch.arange(sk.shape[3], device=device) < pos + 1  # (C,)
     scale = hd ** -0.5
 
     for i in range(dims.n_text_layer):
@@ -474,13 +584,28 @@ def decoder_step(
         k = lin(p["attn"]["k"], "attn_k", xn).reshape(B, 1, H, hd)
         v = lin(p["attn"]["v"], "attn_v", xn).reshape(B, 1, H, hd)
         q = q.transpose(1, 2)
-        sk[i, :, :, pos] = k[:, 0].to(sk.dtype)
-        sv[i, :, :, pos] = v[:, 0].to(sv.dtype)
-        s = mm_f32(q * scale, sk[i].transpose(-1, -2))
-        s = s.masked_fill(~mask, -1e30)
-        probs = torch.softmax(s, dim=-1).to(dtype)
-        o = mm_f32(probs, sv[i]).to(dtype)
-        o = o.transpose(1, 2).reshape(B, 1, dims.n_text_state)
+        if self_kv_int8:
+            row = torch.zeros((B, kernels.SELF_LANES), dtype=torch.float32,
+                              device=device)
+            for cache, new, lanes in ((sk, k, slice(0, H)),
+                                      (sv, v, slice(H, 2 * H))):
+                nf = new[:, 0].float()  # (B, H, hd)
+                a = torch.amax(torch.abs(nf), dim=-1)
+                sc = torch.where(a > 0, a * _INV127, 1.0)
+                cache[i, :, :, :, pos] = torch.round(
+                    nf / sc[..., None]).to(torch.int8)
+                row[:, lanes] = sc
+            scp[i, :, pos] = row  # lane 2H stays 0: this position is valid
+            o = kernels.decode_self_attention_q8(q.contiguous(), sk[i],
+                                                 sv[i], scp[i])
+        else:
+            sk[i, :, :, pos] = k[:, 0].to(sk.dtype)
+            sv[i, :, :, pos] = v[:, 0].to(sv.dtype)
+            s = mm_f32(q * scale, sk[i].transpose(-1, -2))
+            s = s.masked_fill(~mask, -1e30)
+            probs = torch.softmax(s, dim=-1).to(dtype)
+            o = mm_f32(probs, sv[i])
+        o = o.to(dtype).transpose(1, 2).reshape(B, 1, dims.n_text_state)
         x = x + lin(p["attn"]["o"], "attn_o", o)
         x = x + _cross_with_kv(p, x, ck[i], cv[i], H, dtype,
                                None if ks is None else ks[i],
@@ -498,7 +623,7 @@ def decoder_step(
     else:
         logits = linear_q8({}, q8["logits"], x[:, 0],
                            dtype=torch.float32)[:, :dims.n_vocab]
-    return logits, (sk, sv)
+    return logits, ((sk, sv, scp) if self_kv_int8 else (sk, sv))
 
 
 @torch.inference_mode()
@@ -513,15 +638,21 @@ def greedy_decode(
     no_speech_id: int | None = None,
     cross_kv_quantize: bool = False,
     decoder_q8: Params | None = None,
+    cross_kv_bits: int = 8,
+    self_kv_int8: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched greedy decode with a static KV cache.
 
     Returns (tokens (B, P+max_new), avg_logprob (B,), no_speech_prob (B,)),
     positions past EOT filled with ``eot``, as the JAX package's
-    ``greedy_decode`` at temperature 0. With int8 cross K/V and a short
-    prompt (≤ 16 tokens) the prompt primes through unrolled
-    :func:`decoder_step` calls (int8 weights and kernels included); longer
-    prompts and the unquantized path prime teacher-forced.
+    ``greedy_decode`` at temperature 0. ``cross_kv_bits`` (8 or 4) picks
+    the quantized cross K/V; ``decoder_q8`` is a
+    :func:`quantize_decoder_weights` tree. With quantized cross K/V and a
+    short prompt (≤ 16 tokens) the prompt primes through unrolled
+    :func:`decoder_step` calls (quantized weights and kernels included);
+    longer prompts and the unquantized path prime teacher-forced.
+    ``self_kv_int8`` converts the primed cache once
+    (:func:`quantize_self_cache`) and runs the loop on the int8 self cache.
     """
     B, P = prompt.shape
     L = dims.n_text_layer
@@ -532,7 +663,8 @@ def greedy_decode(
     device = enc.device
 
     cross_kv = precompute_cross_kv(params, dims, enc, dtype,
-                                   quantize=cross_kv_quantize)
+                                   quantize=cross_kv_quantize,
+                                   bits=cross_kv_bits)
     sk = torch.zeros((L, B, H, cache_len, hd), dtype=dtype, device=device)
     sv = torch.zeros_like(sk)
 
@@ -560,12 +692,15 @@ def greedy_decode(
     tokens[:, P] = first
     finished = first == eot
     n_decoded = torch.ones((B,), device=device)
+    # the int8 cache replaces the bf16 one, which dies here
+    cache = quantize_self_cache(sk, sv, P) if self_kv_int8 else (sk, sv)
+    del sk, sv
 
     i = P
     while i < total - 1 and not bool(finished.all()):
-        logits, (sk, sv) = decoder_step(
-            params, dims, tokens[:, i:i + 1], cross_kv, i, (sk, sv),
-            dtype=dtype, q8=decoder_q8)
+        logits, cache = decoder_step(
+            params, dims, tokens[:, i:i + 1], cross_kv, i, cache,
+            dtype=dtype, q8=decoder_q8, self_kv_int8=self_kv_int8)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nxt = torch.argmax(logp, dim=-1)
         nxt = torch.where(finished, torch.full_like(nxt, eot), nxt)

@@ -1,16 +1,22 @@
 """The port's hand-written Hopper kernels, their wrappers and plain versions.
 
-Three TPU kernels of ``audio_rag_tpu/ops/pallas_kernels.py`` lie on the
-ported slice's path; each is a CUDA C++ kernel for ``sm_90a`` in
-``audio_rag_tpu_torch/csrc/``:
+Six TPU kernels of ``audio_rag_tpu/ops/pallas_kernels.py`` lie on the
+ported paths; each is a CUDA C++ kernel for ``sm_90a`` in
+``audio_rag_tpu_torch/csrc/`` (:data:`KERNELS` names its source and the
+TPU kernel it replaces):
 
 * :func:`flash_attention` ← ``flash_attention`` (Whisper encoder
   self-attention, through ``models.layers._attend``);
-* :func:`matmul_q8w` ← ``matmul_q8w`` (int8-weight decode matmuls, through
+* :func:`matmul_q8w` ← ``matmul_q8w`` and :func:`matmul_q4w` ←
+  ``matmul_q4w`` (int8- and int4-weight decode matmuls, through
   ``models.layers.linear_q8``);
-* :func:`decode_cross_attention_q8` ← ``decode_cross_attention_q8`` (int8
-  cross-attention of the decode loop, through
-  ``models.whisper._cross_with_kv``).
+* :func:`decode_cross_attention_q8` ← ``decode_cross_attention_q8`` and
+  :func:`decode_cross_attention_q4` ← ``decode_cross_attention_q4`` (int8
+  and int4 cross-attention of the decode loop, through
+  ``models.whisper._cross_with_kv``);
+* :func:`decode_self_attention_q8` ← ``decode_self_attention_q8`` (the
+  greedy loop's self-attention over an int8 self cache, through
+  ``models.whisper.decoder_step``).
 
 The sources are compiled with ``nvcc`` at first use into ``build/kernels/``
 at the repository root (one shared library per source, named by a hash of
@@ -31,6 +37,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -39,22 +46,41 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "build",
+    "int4_nibbles",
+    "dequant_q4w",
     "flash_attention",
     "flash_attention_plain",
     "matmul_q8w",
     "matmul_q8w_plain",
+    "matmul_q4w",
+    "matmul_q4w_plain",
     "decode_cross_attention_q8",
     "decode_cross_attention_q8_plain",
+    "decode_cross_attention_q4",
+    "decode_cross_attention_q4_plain",
+    "decode_self_attention_q8",
+    "decode_self_attention_q8_plain",
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-#: kernel name → its CUDA source under csrc/
-KERNELS: dict[str, str] = {
-    "flash_attention": "flash_attention.cu",
-    "matmul_q8w": "matmul_q8w.cu",
-    "decode_cross_attention_q8": "decode_cross_q8.cu",
+
+class Kernel(NamedTuple):
+    source: str    #: CUDA source under csrc/
+    replaces: str  #: the TPU kernel's wrapper, file:line
+
+
+_PK = "audio_rag_tpu/ops/pallas_kernels.py"
+
+#: kernel name → its source and the TPU kernel it replaces
+KERNELS: dict[str, Kernel] = {
+    "flash_attention": Kernel("flash_attention.cu", f"{_PK}:688"),
+    "matmul_q8w": Kernel("matmul_q8w.cu", f"{_PK}:368"),
+    "decode_cross_attention_q8": Kernel("decode_cross_q8.cu", f"{_PK}:92"),
+    "decode_cross_attention_q4": Kernel("decode_cross_q4.cu", f"{_PK}:178"),
+    "matmul_q4w": Kernel("matmul_q4w.cu", f"{_PK}:481"),
+    "decode_self_attention_q8": Kernel("decode_self_q8.cu", f"{_PK}:282"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`
@@ -91,7 +117,7 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     h.update((_CSRC / "common.cuh").read_bytes())
-    h.update((_CSRC / KERNELS[name]).read_bytes())
+    h.update((_CSRC / KERNELS[name].source).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -110,7 +136,7 @@ def build(names=None, verbose: bool = False) -> dict[str, dict]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", str(tmp), str(_CSRC / KERNELS[name])]
+               "-o", str(tmp), str(_CSRC / KERNELS[name].source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -140,6 +166,15 @@ _ARGTYPES = {
     "decode_cross_attention_q8": ("decode_cross_q8_launch",
                                   [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                                    _I, _F, _I, _I, _VP]),
+    "decode_cross_attention_q4": ("decode_cross_q4_launch",
+                                  [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                   _I, _F, _I, _I, _VP]),
+    "matmul_q4w": ("matmul_q4w_launch",
+                   [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _VP]),
+    "decode_self_attention_q8": ("decode_self_q8_launch",
+                                 [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                  _I, _F, _I, _I, _VP]),
 }
 
 
@@ -242,10 +277,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # -- int8-weight matmul --------------------------------------------------------
 
-# csrc/matmul_q8w.cu: columns and x rows per block, most din rows per block
-_Q8W_COLS, _Q8W_ROWS, _Q8W_KMAX = 256, 16, 1280
-_Q8W_TARGET_BLOCKS = 2 * 132  # two blocks per H100 SM
-_Q8W_MIN_ROWS = 64  # fewest din rows worth a block of its own
+# csrc/matmul_q8w.cu and matmul_q4w.cu: columns and x rows per block, most
+# din rows per block
+_MM_COLS, _MM_ROWS, _MM_KMAX = 256, 16, 1280
+_MM_TARGET_BLOCKS = 2 * 132  # two blocks per H100 SM
+_MM_MIN_ROWS = 64  # fewest din rows worth a block of its own
 
 
 def matmul_q8w_plain(x: torch.Tensor, w8: torch.Tensor,
@@ -254,13 +290,16 @@ def matmul_q8w_plain(x: torch.Tensor, w8: torch.Tensor,
     return torch.matmul(x.bfloat16().float(), w8.float()) * s
 
 
-def _q8w_splits(B: int, din: int, dout: int) -> tuple[int, int]:
-    """(splits, k_per_split) of din: enough blocks to fill the card, each
-    slice within the kernel's shared-memory x buffer."""
-    strips = -(-dout // _Q8W_COLS) * -(-B // _Q8W_ROWS)
-    want = min(-(-_Q8W_TARGET_BLOCKS // strips), din // _Q8W_MIN_ROWS)
-    splits = max(-(-din // _Q8W_KMAX), want, 1)
+def _din_splits(B: int, din: int, dout: int,
+                step: int = 1) -> tuple[int, int]:
+    """(splits, k_per_split) of din for the weight matmuls: enough blocks
+    to fill the card, each slice within the kernel's shared-memory x
+    buffer and a multiple of ``step`` rows (2: whole int4 byte rows)."""
+    strips = -(-dout // _MM_COLS) * -(-B // _MM_ROWS)
+    want = min(-(-_MM_TARGET_BLOCKS // strips), din // _MM_MIN_ROWS)
+    splits = max(-(-din // _MM_KMAX), want, 1)
     k_per = -(-din // splits)
+    k_per += -k_per % step
     return -(-din // k_per), k_per
 
 
@@ -285,7 +324,7 @@ def matmul_q8w(x: torch.Tensor, w8: torch.Tensor,
     _check(B >= 1 and x.is_contiguous() and w8.is_contiguous()
            and s.is_contiguous(), name, "x, w8 and s must be contiguous")
     out = torch.empty((B, dout), dtype=torch.float32, device=x.device)
-    splits, k_per = _q8w_splits(B, din, dout)
+    splits, k_per = _din_splits(B, din, dout)
     scratch = (torch.empty((splits, B, dout), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     vec = dout % 4 == 0 and w8.data_ptr() % 4 == 0 and s.data_ptr() % 16 == 0
@@ -349,5 +388,190 @@ def decode_cross_attention_q8(q: torch.Tensor, k8: torch.Tensor,
                       ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
                       B * H, M, hd, Ta, hd ** -0.5, int(vec4),
                       _DTYPE_CODE[q.dtype], _stream(q))
+    _launched(name, rc)
+    return out
+
+
+# -- int4 helpers ------------------------------------------------------------------
+
+def int4_nibbles(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Signed low and high nibbles of int8 bytes as int32 in [-8, 7]: the
+    TPU kernels' ``(b << 28) >> 28`` and ``b >> 4`` sign extension."""
+    xi = x.to(torch.int32)
+    return (xi << 28) >> 28, xi >> 4
+
+
+def dequant_q4w(w4: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(din/2, dout) row-pair-packed int4 weights (byte r: din row 2r in the
+    low nibble, 2r + 1 in the high one) and (din/group, dout) f32 group
+    scales → the (din, dout) f32 weight: each int4 value times its scale
+    rounded to bf16, the product kept in f32 (the JAX package's
+    ``models/layers._dequant_q4``)."""
+    lo, hi = int4_nibbles(w4)
+    din = 2 * w4.shape[0]
+    q = torch.stack([lo, hi], dim=1).reshape(din, w4.shape[1])
+    sb = s.bfloat16().float().repeat_interleave(din // s.shape[0], dim=0)
+    return q.float() * sb
+
+
+# -- int4-weight matmul ------------------------------------------------------------
+
+def matmul_q4w_plain(x: torch.Tensor, w4: torch.Tensor,
+                     s: torch.Tensor) -> torch.Tensor:
+    """bf16(x) · dequant(w4, s) in f32: the function of the TPU kernel as
+    the JAX package computes it off the TPU (``linear_q8``'s int4 path)."""
+    return torch.matmul(x.bfloat16().float(), dequant_q4w(w4, s))
+
+
+def matmul_q4w(x: torch.Tensor, w4: torch.Tensor,
+               s: torch.Tensor) -> torch.Tensor:
+    """x (B, din) f32/bf16 · int4 W → (B, dout) f32. ``w4`` (din/2, dout)
+    int8 holds din rows 2r and 2r + 1 in the low and high nibble of byte
+    row r; ``s`` (din/group, dout) f32 holds one scale per group of din
+    rows and column, rounded to bf16 before use. Any group that divides
+    din; x rounded to bf16; each dequantized weight times x summed in f32."""
+    name = "matmul_q4w"
+    _check(x.dim() == 2 and w4.dim() == 2 and s.dim() == 2, name,
+           f"need x (B, din), w4 (din/2, dout), s (din/group, dout), got "
+           f"{tuple(x.shape)}, {tuple(w4.shape)}, {tuple(s.shape)}")
+    B, din = x.shape
+    dout = w4.shape[1]
+    _check(2 * w4.shape[0] == din and s.shape[1] == dout
+           and s.shape[0] >= 1 and din % s.shape[0] == 0, name,
+           f"shape mismatch: x {tuple(x.shape)}, w4 {tuple(w4.shape)}, "
+           f"s {tuple(s.shape)}")
+    _check(w4.dtype == torch.int8 and s.dtype == torch.float32, name,
+           f"need int8 w4 and f32 s, got {w4.dtype}, {s.dtype}")
+    if not _route(name, x, w4, s):
+        return matmul_q4w_plain(x, w4, s)
+    _check(x.dtype in _DTYPE_CODE, name, f"need f32 or bf16 x, got {x.dtype}")
+    _check(B >= 1 and x.is_contiguous() and w4.is_contiguous()
+           and s.is_contiguous(), name, "x, w4 and s must be contiguous")
+    out = torch.empty((B, dout), dtype=torch.float32, device=x.device)
+    splits, k_per = _din_splits(B, din, dout, step=2)
+    scratch = (torch.empty((splits, B, dout), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    vec = dout % 4 == 0 and w4.data_ptr() % 4 == 0 and s.data_ptr() % 16 == 0
+    rc = _entry(name)(x.data_ptr(), w4.data_ptr(), s.data_ptr(),
+                      out.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(),
+                      B, din, dout, din // s.shape[0], splits, k_per,
+                      int(vec), _DTYPE_CODE[x.dtype], _stream(x))
+    _launched(name, rc)
+    return out
+
+
+# -- int4 decode cross-attention ---------------------------------------------------
+
+def decode_cross_attention_q4_plain(q, k4, v4, ks, vs) -> torch.Tensor:
+    """Unpacked f32 attention with the K channel scales and 1/√hd folded
+    into q and the V channel scales applied to the output: the function
+    of the TPU kernel."""
+    hd = q.shape[-1]
+    k = torch.cat(int4_nibbles(k4), dim=-2).float()  # (B, H, hd, Ta)
+    v = torch.cat(int4_nibbles(v4), dim=-2).float()
+    qf = q.float() * (hd ** -0.5 * ks)
+    p = torch.softmax(torch.matmul(qf, k), dim=-1)
+    return torch.matmul(p, v.transpose(-1, -2)) * vs
+
+
+def decode_cross_attention_q4(q: torch.Tensor, k4: torch.Tensor,
+                              v4: torch.Tensor, ks: torch.Tensor,
+                              vs: torch.Tensor) -> torch.Tensor:
+    """softmax(q·K/√hd)·V over int4 K/V: q (B, H, M, hd) f32/bf16 with
+    M ≤ 8; k4, v4 (B, H, hd/2, Ta) int8, byte row r holding head dim r in
+    its low nibble and r + hd/2 in its high one; ks, vs (B, H, 1, hd) f32
+    per-channel scales → (B, H, M, hd) f32."""
+    name = "decode_cross_attention_q4"
+    _check(q.dim() == 4 and k4.dim() == 4 and v4.shape == k4.shape, name,
+           f"need q (B, H, M, hd), k4/v4 (B, H, hd/2, Ta), got "
+           f"{tuple(q.shape)}, {tuple(k4.shape)}, {tuple(v4.shape)}")
+    B, H, M, hd = q.shape
+    Ta = k4.shape[3]
+    _check(hd % 2 == 0 and tuple(k4.shape[:3]) == (B, H, hd // 2), name,
+           f"k4 {tuple(k4.shape)} does not match q {tuple(q.shape)}")
+    _check(tuple(ks.shape) == (B, H, 1, hd)
+           and tuple(vs.shape) == (B, H, 1, hd), name,
+           f"need (B, H, 1, hd) scales, got {tuple(ks.shape)}, "
+           f"{tuple(vs.shape)}")
+    _check(k4.dtype == torch.int8 and v4.dtype == torch.int8
+           and ks.dtype == torch.float32 and vs.dtype == torch.float32, name,
+           "need int8 k4/v4 and f32 scales")
+    if not _route(name, q, k4, v4, ks, vs):
+        return decode_cross_attention_q4_plain(q, k4, v4, ks, vs)
+    _check(q.dtype in _DTYPE_CODE, name, f"need f32 or bf16 q, got {q.dtype}")
+    _check(1 <= M <= 8, name, f"M = {M} queries per row; the kernel takes ≤ 8")
+    _check(4 * M * (Ta + hd) <= _CROSS_SMEM_MAX, name,
+           f"M·(Ta + hd) = {M * (Ta + hd)} floats exceed shared memory")
+    _check(all(t.is_contiguous() for t in (q, k4, v4, ks, vs)), name,
+           "q, k4, v4, ks and vs must be contiguous")
+    out = torch.empty((B, H, M, hd), dtype=torch.float32, device=q.device)
+    vec4 = (Ta % 4 == 0 and k4.data_ptr() % 4 == 0
+            and v4.data_ptr() % 4 == 0)
+    rc = _entry(name)(q.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                      ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
+                      B * H, M, hd, Ta, hd ** -0.5, int(vec4),
+                      _DTYPE_CODE[q.dtype], _stream(q))
+    _launched(name, rc)
+    return out
+
+
+# -- int8 decode self-attention ----------------------------------------------------
+
+SELF_LANES = 128  # floats per packed scale row
+
+
+def decode_self_attention_q8_plain(q, k8, v8, sc) -> torch.Tensor:
+    """Scores scaled per position and masked, softmax, probabilities times
+    the V scales, then P·V, all in f32: the function of the TPU kernel (and
+    of the JAX package's off-TPU einsum)."""
+    H, hd = q.shape[1], q.shape[-1]
+    ks = sc[:, :, :H].transpose(1, 2)[:, :, None, :]  # (B, H, 1, Cp)
+    vs = sc[:, :, H:2 * H].transpose(1, 2)[:, :, None, :]
+    mask = sc[:, None, None, :, 2 * H]  # (B, 1, 1, Cp)
+    s = torch.matmul(q.float() * hd ** -0.5, k8.float()) * ks + mask
+    p = torch.softmax(s, dim=-1) * vs
+    return torch.matmul(p, v8.float().transpose(-1, -2))
+
+
+def decode_self_attention_q8(q: torch.Tensor, k8: torch.Tensor,
+                             v8: torch.Tensor, sc: torch.Tensor
+                             ) -> torch.Tensor:
+    """softmax(q·K/√hd + mask)·V over an int8 self cache with per-position
+    scales: q (B, H, M, hd) f32/bf16 with M ≤ 8; k8, v8 (B, H, hd, Cp)
+    int8; sc (B, Cp, 128) f32 holding, for position t, the K scales of the
+    H heads in lanes [0, H), the V scales in [H, 2H) and the additive mask
+    (0 valid, -1e30 not) in lane 2H → (B, H, M, hd) f32."""
+    name = "decode_self_attention_q8"
+    _check(q.dim() == 4 and k8.dim() == 4 and v8.shape == k8.shape
+           and sc.dim() == 3, name,
+           f"need q (B, H, M, hd), k8/v8 (B, H, hd, Cp), sc (B, Cp, 128), "
+           f"got {tuple(q.shape)}, {tuple(k8.shape)}, {tuple(v8.shape)}, "
+           f"{tuple(sc.shape)}")
+    B, H, M, hd = q.shape
+    Cp = k8.shape[3]
+    _check(tuple(k8.shape[:3]) == (B, H, hd), name,
+           f"k8 {tuple(k8.shape)} does not match q {tuple(q.shape)}")
+    _check(tuple(sc.shape) == (B, Cp, SELF_LANES) and 2 * H < SELF_LANES,
+           name, f"need packed scales (B, Cp, {SELF_LANES}) with 2H < "
+           f"{SELF_LANES}, got {tuple(sc.shape)} for H = {H}")
+    _check(k8.dtype == torch.int8 and v8.dtype == torch.int8
+           and sc.dtype == torch.float32, name,
+           "need int8 k8/v8 and f32 packed scales")
+    if not _route(name, q, k8, v8, sc):
+        return decode_self_attention_q8_plain(q, k8, v8, sc)
+    _check(q.dtype in _DTYPE_CODE, name, f"need f32 or bf16 q, got {q.dtype}")
+    _check(1 <= M <= 8, name, f"M = {M} queries per row; the kernel takes ≤ 8")
+    _check(4 * M * (Cp + hd) <= _CROSS_SMEM_MAX, name,
+           f"M·(Cp + hd) = {M * (Cp + hd)} floats exceed shared memory")
+    _check(all(t.is_contiguous() for t in (q, k8, v8, sc)), name,
+           "q, k8, v8 and sc must be contiguous")
+    out = torch.empty((B, H, M, hd), dtype=torch.float32, device=q.device)
+    vec4 = (Cp % 4 == 0 and k8.data_ptr() % 4 == 0
+            and v8.data_ptr() % 4 == 0)
+    rc = _entry(name)(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+                      sc.data_ptr(), out.data_ptr(), B, H, M, hd, Cp,
+                      hd ** -0.5, int(vec4), _DTYPE_CODE[q.dtype],
+                      _stream(q))
     _launched(name, rc)
     return out

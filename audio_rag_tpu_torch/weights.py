@@ -6,9 +6,10 @@ The trees come from a committed ``.npz`` asset
 ``np.asarray`` of each leaf of a JAX tree, so both packages compute from
 the same numbers. Each converter checks the tree against the layout the
 model expects — every key present, no unknown key, every shape, and a
-floating (or, for int8 trees, the exact) dtype — and raises ``KeyError``
-or ``ValueError`` otherwise. The layout is kept: stacked (L, ...) blocks,
-(din, dout) weights, per-layer lists for the int8 decode tree.
+floating (or, for quantized trees, the exact) dtype — and raises
+``KeyError`` or ``ValueError`` otherwise. The layout is kept: stacked
+(L, ...) blocks, (din, dout) weights, per-layer lists for the quantized
+decode tree, the transposed or packed cross K/V, the int8 self cache.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from audio_rag_tpu_torch.models.bert import BertDims
+from audio_rag_tpu_torch.models.layers import q4_group
 from audio_rag_tpu_torch.models.whisper import WhisperDims
 
 __all__ = [
@@ -26,6 +28,8 @@ __all__ = [
     "bgem3_spec",
     "whisper_params",
     "whisper_q8_params",
+    "whisper_cross_kv",
+    "whisper_self_cache_q8",
     "bgem3_params",
 ]
 
@@ -178,46 +182,110 @@ def bgem3_params(tree: dict, dims: BertDims,
     return _float_tree(tree, bgem3_spec(dims), "bgem3", device, dtype)
 
 
-_Q8_BLOCK_SHAPES = ("attn_q", "attn_k", "attn_v", "attn_o", "cross_q",
-                    "cross_o", "mlp_up", "mlp_down")
+def _quant_leaf(prefix: str, leaf: Any, din: int,
+                dout: int) -> dict[str, Shape]:
+    """Spec of one quantized linear: int8 {"w8" (din, dout), "s" (dout,)}
+    or int4 {"w4" (din/2, dout), "s" (din/group, dout)}, by its keys."""
+    keys = set(leaf) if isinstance(leaf, dict) else set()
+    if keys == {"w8", "s"}:
+        return {f"{prefix}/w8": (din, dout), f"{prefix}/s": (dout,)}
+    if keys == {"w4", "s"}:
+        return {f"{prefix}/w4": (din // 2, dout),
+                f"{prefix}/s": (din // q4_group(din), dout)}
+    raise KeyError(f"quantized decoder leaf {prefix}: keys {sorted(keys)}, "
+                   "expected ['s', 'w8'] or ['s', 'w4']")
 
 
 def whisper_q8_params(tree: dict, dims: WhisperDims,
                       device: str | torch.device = "cpu") -> dict:
-    """The JAX package's ``quantize_decoder_weights(bits=8)`` tree
-    ({"blocks": [per-layer {name: {"w8", "s"}}], "logits": {"w8", "s"}})
-    → tensors, int8 weights and f32 scales kept exactly."""
+    """The JAX package's ``quantize_decoder_weights`` tree — int8, int4 or
+    int8 blocks with an int4 head ({"blocks": [per-layer {name: {"w8", "s"}
+    or {"w4", "s"}}], "logits": {...}}) → tensors, the int8 weights, packed
+    int4 bytes and f32 scales kept exactly."""
     d = dims.n_text_state
     shapes = {"attn_q": (d, d), "attn_k": (d, d), "attn_v": (d, d),
               "attn_o": (d, d), "cross_q": (d, d), "cross_o": (d, d),
               "mlp_up": (d, 4 * d), "mlp_down": (4 * d, d)}
     if set(tree) != {"blocks", "logits"}:
-        raise KeyError(f"int8 decoder tree keys {sorted(tree)}, expected "
-                       "['blocks', 'logits']")
+        raise KeyError(f"quantized decoder tree keys {sorted(tree)}, "
+                       "expected ['blocks', 'logits']")
     blocks = tree["blocks"]
     if len(blocks) != dims.n_text_layer:
-        raise ValueError(f"int8 decoder tree has {len(blocks)} layers, "
+        raise ValueError(f"quantized decoder tree has {len(blocks)} layers, "
                          f"expected {dims.n_text_layer}")
     vocab_pad = -(-dims.n_vocab // 128) * 128
     spec: dict[str, Shape] = {}
     flat: dict[str, Any] = {}
     for i, blk in enumerate(blocks):
-        for name in _Q8_BLOCK_SHAPES:
-            din, dout = shapes[name]
-            spec[f"{i}/{name}/w8"] = (din, dout)
-            spec[f"{i}/{name}/s"] = (dout,)
+        for name, (din, dout) in shapes.items():
+            spec.update(_quant_leaf(f"{i}/{name}", blk.get(name), din, dout))
         flat.update(_flatten(blk, str(i)))
-    spec["logits/w8"] = (d, vocab_pad)
-    spec["logits/s"] = (vocab_pad,)
+    spec.update(_quant_leaf("logits", tree["logits"], d, vocab_pad))
     flat.update(_flatten(tree["logits"], "logits"))
-    _check_keys(flat, spec, "int8 decoder")
+    _check_keys(flat, spec, "quantized decoder")
     for key, arr in flat.items():
-        want = "int8" if key.endswith("/w8") else "float32"
+        want = "float32" if key.endswith("/s") else "int8"
         got = np.asarray(arr).dtype.name
         if got != want:
-            raise ValueError(f"int8 decoder leaf {key}: dtype {got}, "
+            raise ValueError(f"quantized decoder leaf {key}: dtype {got}, "
                              f"expected {want}")
     dev = torch.device(device)
     out = _nest({k: _to_tensor(v, dev, None) for k, v in flat.items()})
     return {"blocks": [out[str(i)] for i in range(len(blocks))],
             "logits": out["logits"]}
+
+
+def _exact(parts, specs, what: str, device) -> tuple[torch.Tensor, ...]:
+    """Arrays held to (shape, dtype name) specs → tensors, values kept."""
+    if len(parts) != len(specs):
+        raise ValueError(f"{what}: {len(parts)} arrays, expected "
+                         f"{len(specs)}")
+    for i, (arr, (shape, dtype)) in enumerate(zip(parts, specs)):
+        got = (tuple(np.shape(arr)), np.asarray(arr).dtype.name)
+        if got != (tuple(shape), dtype):
+            raise ValueError(f"{what} array {i}: {got}, expected "
+                             f"{(tuple(shape), dtype)}")
+    dev = torch.device(device)
+    return tuple(_to_tensor(a, dev, None) for a in parts)
+
+
+def whisper_cross_kv(parts, dims: WhisperDims,
+                     device: str | torch.device = "cpu"
+                     ) -> tuple[torch.Tensor, ...]:
+    """The JAX package's quantized ``precompute_cross_kv`` output → tensors:
+    the int8 quadruple (k8, v8 (L, B, H, hd, Ta) int8, scales
+    (L, B, H, 1, 1) f32) or the int4 one (k4, v4 (L, B, H, hd/2, Ta) int8,
+    per-channel scales (L, B, H, 1, hd) f32), told apart by the K axis."""
+    L, H = dims.n_text_layer, dims.n_text_head
+    hd = dims.n_text_state // H
+    shape = tuple(np.shape(parts[0]))
+    if len(parts) != 4 or len(shape) != 5:
+        raise ValueError("cross K/V: expected (k, v, k_scale, v_scale) with "
+                         "5-dim K/V")
+    B, rows, Ta = shape[1], shape[3], shape[4]
+    if rows not in (hd, hd // 2):
+        raise ValueError(f"cross K/V axis 3 is {rows}, expected {hd} (int8) "
+                         f"or {hd // 2} (int4)")
+    kv = ((L, B, H, rows, Ta), "int8")
+    sc = ((L, B, H, 1, 1 if rows == hd else hd), "float32")
+    return _exact(parts, (kv, kv, sc, sc), "cross K/V", device)
+
+
+def whisper_self_cache_q8(parts, dims: WhisperDims,
+                          device: str | torch.device = "cpu"
+                          ) -> tuple[torch.Tensor, ...]:
+    """The JAX package's ``quantize_self_cache`` triple (k8, v8
+    (L, B, H, hd, Cp) int8, packed scales (L, B, Cp, 128) f32) → tensors."""
+    L, H = dims.n_text_layer, dims.n_text_head
+    hd = dims.n_text_state // H
+    shape = tuple(np.shape(parts[0]))
+    if len(parts) != 3 or len(shape) != 5:
+        raise ValueError("self cache: expected (k8, v8, scales) with 5-dim "
+                         "K/V")
+    B, Cp = shape[1], shape[4]
+    if Cp % 128:
+        raise ValueError(f"self cache: {Cp} positions, not a multiple of "
+                         "128")
+    kv = ((L, B, H, hd, Cp), "int8")
+    return _exact(parts, (kv, kv, ((L, B, Cp, 128), "float32")),
+                  "self cache", device)

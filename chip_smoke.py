@@ -6,33 +6,51 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It exits non-zero without a CUDA device, and imports nothing of JAX or of
-the JAX package. Phases (any failure exits non-zero):
+the JAX package. Phases (any failure exits non-zero; ``--phases`` picks a
+subset):
 
-1. build   — nvcc-builds the port's three kernels (one process per source,
-             all started together) and prints the seconds it took;
-2. kernels — holds each kernel against its plain PyTorch version on the card
-             at a small shape and at the Whisper large-v3 shapes, printing
-             the error, tolerance, kernel / plain / library ms and bound;
-3. spine   — ingests three spoken turns (tiny-synth ASR + eval-small
-             embedder, committed trained weights, int8 decode profile)
-             through ``AudioRAG`` and checks that hybrid queries retrieve
-             the chunk with the spoken words, and that every kernel ran;
-4. full    — the same ingest → query path with Whisper large-v3 shapes
-             (seeded weights) in the production decode profile on 16 windows
-             (8 min) of speech: first-step logits against the plain path on
-             the card, a traced window of decode steps (host ms and device
-             busy ms per step, top kernels), encode ms per window batch,
-             decode ms, RTF, peak memory, kernel launches.
+1. build    — nvcc-builds the port's six kernels (one process per source,
+              all started together) and prints the seconds it took;
+2. kernels  — holds each kernel against its plain PyTorch version on the
+              card at small ragged shapes and at the Whisper large-v3
+              shapes, printing the error, tolerance, kernel / plain /
+              library ms and bound;
+3. spine    — ingests three spoken turns (tiny-synth ASR + eval-small
+              embedder, committed trained weights) through ``AudioRAG`` in
+              three decode profiles: int8 (cross_kv_int8 + decoder_int8) and
+              int8 + int4 weights + int8 self cache, where hybrid queries
+              must retrieve the chunk with the spoken words, and the repo's
+              benchmark profile (cross_kv_int4 + decoder_int8 +
+              lm_head_int4), whose top hits and chunk count must equal the
+              port's own CPU run of it (int4 cross K/V garbles tiny-synth's
+              words in the JAX package too);
+4. full     — the same ingest → query path with Whisper large-v3 shapes
+              (seeded weights) in the production decode profile
+              (cross_kv_int8 + decoder_int8, window batch 16) on 16 windows
+              (8 min) of speech: first-step logits against the plain path on
+              the card, a traced window of decode steps (host ms and device
+              busy ms per step, top kernels), encode ms per window batch,
+              decode ms, RTF, peak memory, kernel launches;
+5. full_kv4 — the same at large-v3 shapes in the benchmark profile
+              (cross_kv_int4 + decoder_int8 + lm_head_int4, window batch
+              32) on 32 windows (16 min) of speech;
+6. capacity — large-v3 shapes in the capacity profile (cross_kv_int4 +
+              decoder_int4 + self_kv_int8, window batch 16): first-step
+              logits and 8 decode steps against the plain path on the card,
+              and a traced window of decode steps (no ingest).
 
-TF32 is switched off for matmuls and cuDNN so f32 references are f32. The
-second-to-last line is the kernels JSON; the last line is
-``{"ok": true, "device": {...}}``.
+Each path resets the launch counters before it runs, reads them after, and
+fails unless every kernel it runs was launched. TF32 is switched off for
+matmuls and cuDNN so f32 references are f32. The second-to-last line is
+the kernels JSON (launches summed over the paths, and by path); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -54,6 +72,22 @@ SPINE_TURNS = [
 SPINE_QUERIES = [("gradient descent loss", ("gradient", "descent")),
                  ("spectrogram harmonic", ("spectrogram", "harmonic"))]
 
+FLASH, Q8W, Q4W = "flash_attention", "matmul_q8w", "matmul_q4w"
+CROSS8, CROSS4 = "decode_cross_attention_q8", "decode_cross_attention_q4"
+SELF8 = "decode_self_attention_q8"
+
+#: decode profile → (ASRConfig switches, the kernels its decode path runs)
+PROFILES = {
+    "int8": ({"cross_kv_int8": True, "decoder_int8": True},
+             {FLASH, Q8W, CROSS8}),
+    "int8+dec4+skv8": ({"cross_kv_int8": True, "decoder_int4": True,
+                        "self_kv_int8": True}, {FLASH, Q4W, SELF8, CROSS8}),
+    "kv4+int8+lm4": ({"cross_kv_int4": True, "decoder_int8": True,
+                      "lm_head_int4": True}, {FLASH, Q8W, Q4W, CROSS4}),
+    "kv4+dec4+skv8": ({"cross_kv_int4": True, "decoder_int4": True,
+                       "self_kv_int8": True}, {FLASH, Q4W, SELF8, CROSS4}),
+}
+
 # the logits head pads the vocab to a multiple of 128 (51866 → 51968)
 LARGE_V3_Q8W = [  # (din, dout, calls per decode step)
     (1280, 1280, 6 * 32),  # attention q/k/v/o + cross q/o, 32 layers
@@ -61,6 +95,9 @@ LARGE_V3_Q8W = [  # (din, dout, calls per decode step)
     (5120, 1280, 32),      # MLP down
     (1280, 51968, 1),      # logits head
 ]
+# the same matrices at int4, with the q4_group of their din
+LARGE_V3_Q4W = [(din, dout, calls, 128 if din == 5120 else 80)
+                for din, dout, calls in LARGE_V3_Q8W]
 
 
 def fail(msg: str) -> None:
@@ -213,11 +250,125 @@ def _cross_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
     return row, err <= tol
 
 
+def _q4w_case(torch, K, B, din, dout, group, xdtype, flush, timed):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((B, din), generator=g, device="cuda").to(xdtype)
+    w4 = torch.randint(-128, 128, (din // 2, dout), generator=g,
+                       device="cuda", dtype=torch.int8)
+    s = torch.rand((din // group, dout), generator=g, device="cuda") \
+        * 0.015 + 0.005
+    got = K.matmul_q4w(x, w4, s)
+    ref = K.matmul_q4w_plain(x, w4, s)
+    err_el = (got - ref).abs()
+    # exact products (bf16 × int4·bf16 scale fits f32); two f32 summation
+    # orders over din terms differ by at most 2·din·u·Σ|x·w| (u = 2^-24)
+    w = K.dequant_q4w(w4, s)
+    mag = torch.matmul(x.bfloat16().float().abs(), w.abs())
+    tol_el = 2 * din * 2.0 ** -24 * mag
+    ok = bool((err_el <= tol_el).all())
+    row = {"shape": [B, din, dout], "group": group,
+           "dtype": str(xdtype).split(".")[-1],
+           "max_abs_err": err_el.max().item(),
+           "tol": "2*din*2^-24*sum|x*w| per element",
+           "max_tol": tol_el.max().item()}
+    if timed:
+        w_lib = w.bfloat16()
+        xb = x.bfloat16()
+        del w
+        row["ms"] = time_ms(torch, lambda: K.matmul_q4w(x, w4, s),
+                            flush=flush)
+        row["plain_ms"] = time_ms(
+            torch, lambda: K.matmul_q4w_plain(x, w4, s), flush=flush)
+        row["library_ms"] = time_ms(torch, lambda: torch.matmul(xb, w_lib),
+                                    flush=flush)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            B * din * x.element_size() + din // 2 * dout
+            + 4 * (din // group) * dout + 4 * B * dout,
+            2 * B * din * dout, "bf16")
+    return row, ok
+
+
+def _cross4_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((B, H, M, hd), generator=g, device="cuda").to(qdtype)
+    k4, v4 = (torch.randint(-128, 128, (B, H, hd // 2, Ta), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand((B, H, 1, hd), generator=g, device="cuda") * 0.09
+              + 0.01 for _ in range(2))
+    got = K.decode_cross_attention_q4(q, k4, v4, ks, vs)
+    ref = K.decode_cross_attention_q4_plain(q, k4, v4, ks, vs)
+    err = (got - ref).abs().max().item()
+    # f32 throughout; sums over Ta keys in another order
+    tol = 1e-4 + 1e-4 * ref.abs().max().item()
+    row = {"shape": [B, H, M, hd, Ta], "dtype": str(qdtype).split(".")[-1],
+           "max_abs_err": err, "tol": tol}
+    if timed:
+        row["ms"] = time_ms(
+            torch, lambda: K.decode_cross_attention_q4(q, k4, v4, ks, vs),
+            flush=flush)
+        row["plain_ms"] = time_ms(
+            torch, lambda: K.decode_cross_attention_q4_plain(q, k4, v4, ks,
+                                                             vs),
+            flush=flush)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            B * H * M * hd * q.element_size() + B * H * hd * Ta
+            + 8 * B * H * hd + 4 * B * H * M * hd, 4 * B * H * M * hd * Ta,
+            "bf16")
+    return row, err <= tol
+
+
+def _self8_case(torch, K, B, H, M, hd, Cp, n_valid, qdtype, flush, timed):
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn((B, H, M, hd), generator=g, device="cuda").to(qdtype)
+    k8, v8 = (torch.randint(-127, 128, (B, H, hd, Cp), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    sc = torch.zeros((B, Cp, 128), device="cuda")
+    sc[:, :, :2 * H] = torch.rand((B, Cp, 2 * H), generator=g,
+                                  device="cuda") * 0.02 + 0.001
+    valid = torch.arange(Cp, device="cuda") < n_valid
+    sc[:, :, 2 * H] = torch.where(valid, 0.0, -1e30)
+    got = K.decode_self_attention_q8(q, k8, v8, sc)
+    ref = K.decode_self_attention_q8_plain(q, k8, v8, sc)
+    err = (got - ref).abs().max().item()
+    # f32 throughout; sums over Cp positions in another order
+    tol = 1e-4 + 1e-4 * ref.abs().max().item()
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    row = {"shape": [B, H, M, hd, Cp], "n_valid": n_valid,
+           "dtype": str(qdtype).split(".")[-1], "max_abs_err": err,
+           "tol": tol}
+    if timed:
+        # the library yardstick: SDPA on dequantized bf16 K/V, same mask
+        kd = (k8.float() * sc[:, None, :, :H].permute(0, 3, 1, 2)) \
+            .transpose(-1, -2).bfloat16()
+        vd = (v8.float() * sc[:, None, :, H:2 * H].permute(0, 3, 1, 2)) \
+            .transpose(-1, -2).bfloat16()
+        qb = q.bfloat16()
+        mask = valid[None, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["ms"] = time_ms(
+            torch, lambda: K.decode_self_attention_q8(q, k8, v8, sc),
+            flush=flush)
+        row["plain_ms"] = time_ms(
+            torch, lambda: K.decode_self_attention_q8_plain(q, k8, v8, sc),
+            flush=flush)
+        row["library_ms"] = time_ms(
+            torch, lambda: sdpa(qb, kd, vd, attn_mask=mask), flush=flush)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            B * H * M * hd * q.element_size() + 2 * B * H * hd * Cp
+            + 4 * B * Cp * 128 + 4 * B * H * M * hd,
+            4 * B * H * M * hd * Cp, "bf16")
+    return row, ok
+
+
 def phase_kernels(torch, K) -> dict:
     """Every kernel against its plain version; returns the JSON rows'
     measured fields at the large-v3 main-path shapes."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     bad = []
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         ("flash_attention", lambda t: _flash_case(
             torch, K, (3, 4, 300, 32), torch.float32, flush, t), False),
@@ -239,16 +390,50 @@ def phase_kernels(torch, K) -> dict:
         ("matmul_q8w", lambda t: _q8w_case(   # byte loads, din split
             torch, K, 20, 1300, 77, torch.bfloat16, flush, t), False),
         *[("matmul_q8w", (lambda din, dout: lambda t: _q8w_case(
-            torch, K, 16, din, dout, torch.bfloat16, flush, t))(din, dout),
+            torch, K, 16, din, dout, bf16, flush, t))(din, dout),
             True) for din, dout, _ in LARGE_V3_Q8W],
+        # the benchmark profile's int8 blocks run at window batch 32
+        *[("matmul_q8w@32", (lambda din, dout: lambda t: _q8w_case(
+            torch, K, 32, din, dout, bf16, flush, t))(din, dout),
+            True) for din, dout, _ in LARGE_V3_Q8W[:3]],
         ("decode_cross_attention_q8", lambda t: _cross_case(
             torch, K, 3, 4, 1, 32, 300, torch.float32, flush, t), False),
         ("decode_cross_attention_q8", lambda t: _cross_case(
             torch, K, 2, 3, 5, 64, 301, torch.bfloat16, flush, t), False),
         ("decode_cross_attention_q8", lambda t: _cross_case(
             torch, K, 16, 20, 1, 64, 1500, torch.bfloat16, flush, t), True),
+        ("decode_cross_attention_q4", lambda t: _cross4_case(
+            torch, K, 3, 4, 1, 32, 300, f32, flush, t), False),
+        ("decode_cross_attention_q4", lambda t: _cross4_case(
+            torch, K, 2, 3, 5, 64, 301, bf16, flush, t), False),
+        ("decode_cross_attention_q4", lambda t: _cross4_case(  # beams
+            torch, K, 32, 20, 5, 64, 1500, bf16, flush, t), False),
+        ("decode_cross_attention_q4", lambda t: _cross4_case(
+            torch, K, 32, 20, 1, 64, 1500, bf16, flush, t), True),
+        ("matmul_q4w", lambda t: _q4w_case(
+            torch, K, 3, 128, 512, 128, f32, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(   # ragged dout, byte loads
+            torch, K, 5, 200, 72, 40, bf16, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(   # odd group, B > 16
+            torch, K, 37, 300, 260, 3, f32, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(   # din split
+            torch, K, 20, 1300, 77, 100, bf16, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(   # the benchmark profile's head
+            torch, K, 32, 1280, 51968, 80, bf16, flush, t), True),
+        # the capacity profile's all-int4 decode step at window batch 16
+        *[("matmul_q4w@16", (lambda din, dout, grp: lambda t: _q4w_case(
+            torch, K, 16, din, dout, grp, bf16, flush, t))(din, dout, grp),
+            True) for din, dout, _, grp in LARGE_V3_Q4W],
+        ("decode_self_attention_q8", lambda t: _self8_case(
+            torch, K, 2, 4, 1, 32, 128, 37, f32, flush, t), False),
+        ("decode_self_attention_q8", lambda t: _self8_case(
+            torch, K, 3, 5, 2, 64, 130, 100, bf16, flush, t), False),
+        ("decode_self_attention_q8", lambda t: _self8_case(  # all masked
+            torch, K, 1, 4, 1, 32, 128, 0, f32, flush, t), False),
+        ("decode_self_attention_q8", lambda t: _self8_case(
+            torch, K, 16, 20, 1, 64, 256, 40, bf16, flush, t), True),
     ]
-    large: dict[str, list[dict]] = {name: [] for name in K.KERNELS}
+    large: dict[str, list[dict]] = {}
     for name, case, timed in cases:
         row, ok = case(timed)
         torch.cuda.synchronize()
@@ -257,13 +442,14 @@ def phase_kernels(torch, K) -> dict:
         if not ok:
             bad.append(f"{name} {row['shape']}")
         if timed:
-            large[name].append(row)
+            large.setdefault(name, []).append(row)
     if bad:
         fail("kernel disagrees with its plain version: " + ", ".join(bad))
 
     # one JSON row per kernel at the full-width main path's shapes: flash
-    # and cross per layer call; matmul_q8w summed over one decode step
-    def agg(name, rows, weights):
+    # and the attention kernels per layer call; matmul_q8w summed over one
+    # decode step; matmul_q4w per call of the benchmark profile's head
+    def agg(rows, weights):
         out = {"max_abs_err": max(r["max_abs_err"] for r in rows)}
         for key in ("ms", "plain_ms", "bound_ms"):
             out[key] = sum(w * r[key] for w, r in zip(weights, rows))
@@ -274,20 +460,31 @@ def phase_kernels(torch, K) -> dict:
         out["bound_by"] = by.pop() if len(by) == 1 else "bytes"
         return out
 
+    print("decode-step sums", json.dumps({
+        "matmul_q8w at B=32, the benchmark profile's 256 int8 block calls":
+            agg(large["matmul_q8w@32"], [c for _, _, c in LARGE_V3_Q8W[:3]]),
+        "matmul_q4w at B=16, the capacity profile's 257 calls":
+            agg(large["matmul_q4w@16"], [c for _, _, c, _ in LARGE_V3_Q4W]),
+    }), flush=True)
     return {
-        "flash_attention": {**agg("flash_attention", large["flash_attention"],
-                                  [1]),
-                            "per": "call at (16, 20, 1500, 64) bf16 "
-                                   "(one encoder layer, 16 windows)"},
-        "matmul_q8w": {**agg("matmul_q8w", large["matmul_q8w"],
-                             [c for _, _, c in LARGE_V3_Q8W]),
-                       "per": "decode step: 257 calls at B=16 "
-                              "(192×1280², 32×1280→5120, 32×5120→1280, "
-                              "1×1280→51968)"},
-        "decode_cross_attention_q8": {
-            **agg("decode_cross_attention_q8",
-                  large["decode_cross_attention_q8"], [1]),
-            "per": "call at (16, 20, 1, 64), Ta=1500 (one layer, one step)"},
+        FLASH: {**agg(large[FLASH], [1]),
+                "per": "call at (16, 20, 1500, 64) bf16 "
+                       "(one encoder layer, 16 windows)"},
+        Q8W: {**agg(large[Q8W], [c for _, _, c in LARGE_V3_Q8W]),
+              "per": "decode step: 257 calls at B=16 (192×1280², "
+                     "32×1280→5120, 32×5120→1280, 1×1280→51968)"},
+        CROSS8: {**agg(large[CROSS8], [1]),
+                 "per": "call at (16, 20, 1, 64), Ta=1500 "
+                        "(one layer, one step)"},
+        CROSS4: {**agg(large[CROSS4], [1]),
+                 "per": "call at (32, 20, 1, 64), Ta=1500 "
+                        "(one layer, one step, window batch 32)"},
+        Q4W: {**agg(large[Q4W], [1]),
+              "per": "call at B=32, 1280→51968, group 80 (the benchmark "
+                     "profile's logits head, once per step)"},
+        SELF8: {**agg(large[SELF8], [1]),
+                "per": "call at (16, 20, 1, 64), Cp=256 (one layer, one "
+                       "step of the capacity profile)"},
     }
 
 
@@ -317,14 +514,14 @@ def speak(turns, rng, window_s: float):
     return np.concatenate(pieces)
 
 
-def spine_config(device: str, int8: bool):
+def spine_config(device: str, profile: str):
     from audio_rag_tpu_torch.config import (
         ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig,
         RetrievalConfig)
 
     return AudioRAGConfig(
         asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
-                      cross_kv_int8=int8, decoder_int8=int8),
+                      **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
         # small max_tokens: each 6 s window's segment becomes its own chunk
@@ -333,7 +530,7 @@ def spine_config(device: str, int8: bool):
         device=device)
 
 
-def run_spine(device: str, int8: bool, workdir: Path) -> dict:
+def run_spine(device: str, profile: str, workdir: Path) -> dict:
     """Ingest the three turns and run both queries; returns what it saw."""
     import numpy as np
 
@@ -341,7 +538,7 @@ def run_spine(device: str, int8: bool, workdir: Path) -> dict:
     from audio_rag_tpu_torch.audio.io import write_wav
     from audio_rag_tpu_torch.pipeline import AudioRAG
 
-    rag = AudioRAG(spine_config(device, int8))
+    rag = AudioRAG(spine_config(device, profile))
     wav_path = workdir / "lecture.wav"
     audio = speak(SPINE_TURNS, np.random.default_rng(7),
                   rag.asr.window_seconds)
@@ -366,36 +563,63 @@ def run_spine(device: str, int8: bool, workdir: Path) -> dict:
     return out
 
 
+def check_launches(path: str, launches: dict, expect: set) -> None:
+    """Fail unless every kernel of the path launched."""
+    missing = sorted(name for name in expect if launches.get(name, 0) == 0)
+    if missing:
+        fail(f"{path}: kernels of the path never launched: {missing} "
+             f"(launches {launches})")
+
+
 def phase_spine(torch, K, workdir: Path) -> dict:
-    K.reset_launches()
-    out = run_spine("cuda", int8=True, workdir=workdir)
-    torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    print("spine transcripts (chunk texts):", json.dumps(out["transcripts"]))
-    print(f"spine chunks {out['chunks']} ingest_ms {out['ingest_ms']:.1f}")
-    for q in out["queries"]:
-        print(f"spine query {q['query']!r} ms {q['ms']:.1f} "
-              f"top {json.dumps(q['top'])} {'ok' if q['ok'] else 'MISS'}")
-    print("spine launches", json.dumps(launches), flush=True)
-    if out["chunks"] < 2:
-        fail(f"spine produced {out['chunks']} chunk(s); expected several")
-    if not all(q["ok"] for q in out["queries"]):
-        fail("spine: a query's top hit lacks its spoken words")
-    if not all(n > 0 for n in launches.values()):
-        fail(f"spine: a kernel never launched: {launches}")
-    return launches
+    """The spine in three decode profiles; returns launches by path."""
+    by_path = {}
+    for profile in ("int8", "int8+dec4+skv8", "kv4+int8+lm4"):
+        K.reset_launches()
+        out = run_spine("cuda", profile, workdir)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        tag = f"spine[{profile}]"
+        print(f"{tag} transcripts (chunk texts):",
+              json.dumps(out["transcripts"]))
+        print(f"{tag} chunks {out['chunks']} ingest_ms "
+              f"{out['ingest_ms']:.1f}")
+        for q in out["queries"]:
+            print(f"{tag} query {q['query']!r} ms {q['ms']:.1f} "
+                  f"top {json.dumps(q['top'])} spoken words in the top "
+                  f"hit: {'yes' if q['ok'] else 'no'}")
+        print(f"{tag} launches", json.dumps(launches), flush=True)
+        if out["chunks"] < 2:
+            fail(f"{tag} produced {out['chunks']} chunk(s); expected several")
+        if PROFILES[profile][0].get("cross_kv_int4"):
+            # int4 cross K/V garbles tiny-synth's words (in the JAX package
+            # too): hold the card to the port's CPU run of the same profile
+            cpu = run_spine("cpu", profile, workdir)
+            print(f"{tag} cpu transcripts (chunk texts):",
+                  json.dumps(cpu["transcripts"]))
+            print(f"{tag} cpu tops",
+                  json.dumps([q["top"] for q in cpu["queries"]]), flush=True)
+            same = (cpu["chunks"] == out["chunks"] and all(
+                c["top"][:1] == g["top"][:1]
+                for c, g in zip(cpu["queries"], out["queries"])))
+            if not same:
+                fail(f"{tag}: top hits or chunk count differ from the CPU "
+                     "run of the same profile")
+        elif not all(q["ok"] for q in out["queries"]):
+            fail(f"{tag}: a query's top hit lacks its spoken words")
+        check_launches(tag, launches, PROFILES[profile][1])
+        by_path[tag] = launches
+    return by_path
 
 
-def full_config(device: str):
+def large_v3_config(device: str, profile: str, window_batch: int):
     from audio_rag_tpu_torch.config import (
         ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig)
 
-    # configs/production.yaml's decode profile at large-v3 shapes
     return AudioRAGConfig(
         asr=ASRConfig(model_size="large-v3", compute_type="bfloat16",
-                      cross_kv_int8=True, decoder_int8=True,
-                      window_batch_size=16, max_decode_tokens=32,
-                      language="en", seed=0),
+                      window_batch_size=window_batch, max_decode_tokens=32,
+                      language="en", seed=0, **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
         chunking=ChunkingConfig(min_chunk_tokens=1, overlap_tokens=0),
         device=device)
@@ -424,7 +648,7 @@ def long_speech(seconds: float, seed: int = 5):
 @contextlib.contextmanager
 def plain_kernels(K):
     """Route the models' kernel calls to the plain versions (the reference
-    path of the logits check only)."""
+    path of the logits checks only)."""
     saved = {name: getattr(K, name) for name in K.KERNELS}
     for name in K.KERNELS:
         setattr(K, name, getattr(K, name + "_plain"))
@@ -435,38 +659,73 @@ def plain_kernels(K):
             setattr(K, name, fn)
 
 
-def prime_decoder(torch, asr, wav):
-    """Encode the first window batch and prime the decoder with the prompt
-    (int8 cross K/V and weights, as the production profile runs it).
-    Returns the first decode step's logits and the decoder state."""
+def decode_window(torch, asr, wav, steps: int = 0, tokens=None,
+                  cache_len: int = 36):
+    """Encode the first window batch, prime the decoder with the prompt as
+    the ASR's decode profile does (quantized cross K/V and weights, the
+    self cache converted to int8 after priming in the self_kv_int8
+    profile), then run ``steps`` greedy steps (feeding ``tokens`` when
+    given). Returns the logits after the prompt and after each step, the
+    tokens fed, and the decoder state."""
     import numpy as np
 
     from audio_rag_tpu_torch.models.whisper import (
-        decoder_step, encode, precompute_cross_kv)
+        decoder_step, encode, precompute_cross_kv, quantize_self_cache)
     from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, log_mel_batch
 
     dims, st = asr.dims, asr.tokens
     n = 2 * dims.n_audio_ctx * HOP_LENGTH
     B = asr.config.window_batch_size
+    skv8 = asr.config.self_kv_int8
+    dev = asr.device
     win = torch.from_numpy(np.ascontiguousarray(
-        wav[: B * n].reshape(B, n))).cuda()
+        wav[: B * n].reshape(B, n))).to(dev)
     with torch.inference_mode():
         mel = log_mel_batch(win, n_mels=dims.n_mels)
         enc = encode(asr._params, dims, mel, dtype=asr.dtype)
         ckv = precompute_cross_kv(asr._params, dims, enc, asr.dtype,
-                                  quantize=True)
+                                  quantize=True, bits=asr.cross_kv_bits)
+        del enc
         hd = dims.n_text_state // dims.n_text_head
-        sk = torch.zeros((dims.n_text_layer, B, dims.n_text_head, 36, hd),
-                         dtype=asr.dtype, device="cuda")
+        sk = torch.zeros((dims.n_text_layer, B, dims.n_text_head, cache_len,
+                          hd), dtype=asr.dtype, device=dev)
         sv = torch.zeros_like(sk)
         prompt = torch.tensor([[st.sot, st.lang_base, st.transcribe,
-                                st.no_timestamps]] * B, device="cuda")
-        for t in range(prompt.shape[1]):
+                                st.no_timestamps]] * B, device=dev)
+        P = prompt.shape[1]
+        for t in range(P):
             logits, (sk, sv) = decoder_step(
                 asr._params, dims, prompt[:, t:t + 1], ckv, t, (sk, sv),
                 dtype=asr.dtype, q8=asr._params_q8)
-    return logits.float(), {"ckv": ckv, "cache": (sk, sv),
-                            "pos": prompt.shape[1]}
+        out = [logits.float()]
+        cache = quantize_self_cache(sk, sv, P) if skv8 else (sk, sv)
+        del sk, sv
+        fed = []
+        for i in range(steps):
+            tok = (out[-1].argmax(-1, keepdim=True) if tokens is None
+                   else tokens[i])
+            fed.append(tok)
+            logits, cache = decoder_step(
+                asr._params, dims, tok, ckv, P + i, cache, dtype=asr.dtype,
+                q8=asr._params_q8, self_kv_int8=skv8)
+            out.append(logits.float())
+    return out, fed, {"ckv": ckv, "cache": cache, "pos": P + steps}
+
+
+def check_logits(tag: str, got: list, ref: list) -> None:
+    """bf16 activations through 32+32 layers: a one-ulp flip early on
+    grows; hold the kernels' logits within 5% of the logits' range."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        err = (g - r).abs().max().item()
+        scale = r.abs().max().item()
+        agree = (g.argmax(-1) == r.argmax(-1)).float().mean().item()
+        tol = 0.05 * scale
+        what = "first-step" if i == 0 else f"step {i}"
+        print(f"{tag} {what} logits max_abs_err {err:.5f} tol {tol:.5f} "
+              f"(max|logit| {scale:.4f}) argmax agreement {agree:.3f}",
+              flush=True)
+        if not math.isfinite(err) or err > tol:
+            fail(f"{tag}: {what} logits disagree with the plain path")
 
 
 def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
@@ -489,7 +748,8 @@ def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
         for _ in range(steps):
             out, cache = decoder_step(
                 asr._params, asr.dims, tok, state["ckv"], pos, cache,
-                dtype=asr.dtype, q8=asr._params_q8)
+                dtype=asr.dtype, q8=asr._params_q8,
+                self_kv_int8=asr.config.self_kv_int8)
             tok = out.argmax(-1, keepdim=True)
             pos += 1
         torch.cuda.synchronize()
@@ -518,41 +778,41 @@ def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
                                         for name, ms in top}}
 
 
-def phase_full(torch, K) -> dict:
+def free_card(torch) -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_full(torch, K, tag: str, profile: str, window_batch: int,
+               n_windows: int) -> dict:
+    """Large-v3 shapes through ``AudioRAG.ingest``/``query`` on
+    ``n_windows`` windows of speech; returns the ingest's launches."""
     from audio_rag_tpu_torch.audio.charvoice import SR
     from audio_rag_tpu_torch.pipeline import AudioRAG
 
-    seconds = 16 * 30.0
+    seconds = n_windows * 30.0
     wav = long_speech(seconds)
-    rag = AudioRAG(full_config("cuda"))
+    rag = AudioRAG(large_v3_config("cuda", profile, window_batch))
     t0 = time.perf_counter()
     asr = rag.asr
     rag.embedder
     torch.cuda.synchronize()
-    print(f"full load_s {time.perf_counter() - t0:.2f} (seeded large-v3 "
-          "weights + int8 decode tree)", flush=True)
+    print(f"{tag} load_s {time.perf_counter() - t0:.2f} (seeded large-v3 "
+          f"weights + {profile} decode tree)", flush=True)
 
     # first-step logits: kernels against plain versions, same inputs
-    got, state = prime_decoder(torch, asr, wav)
+    got, _, state = decode_window(torch, asr, wav)
     with plain_kernels(K):
-        ref = prime_decoder(torch, asr, wav)[0]
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    # bf16 activations through 32+32 layers: a one-ulp flip early on grows;
-    # hold the kernels' logits within 5% of the logits' range
-    tol = 0.05 * scale
-    print(f"full first-step logits max_abs_err {err:.5f} tol {tol:.5f} "
-          f"(max|logit| {scale:.4f}) argmax agreement {agree:.3f}",
-          flush=True)
-    if not math.isfinite(err) or err > tol:
-        fail("full: first-step logits disagree with the plain path")
+        ref = decode_window(torch, asr, wav)[0]
+    check_logits(tag, got, ref)
+    del ref
     # a traced window of decode steps, outside the main path's run
-    print("full decode profile", json.dumps(
-        profile_decode(torch, asr, got, state)), flush=True)
-    del state
+    print(f"{tag} decode profile", json.dumps(
+        profile_decode(torch, asr, got[0], state)), flush=True)
+    del state, got
+    free_card(torch)
 
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -564,6 +824,7 @@ def phase_full(torch, K) -> dict:
     tm = asr.timings
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     out = {
+        "profile": profile, "window_batch": window_batch,
         "windows": tm["windows"], "batches": tm["batches"],
         "encode_ms_per_batch": tm["encode_s"] / tm["batches"] * 1e3,
         # cross K/V precompute, 4 prompt steps and the greedy loop's steps
@@ -576,20 +837,58 @@ def phase_full(torch, K) -> dict:
         "segments": res.num_segments, "hits": len(hits),
         "peak_mem_gb": peak_gb, "launches": launches,
     }
-    print("full", json.dumps(out), flush=True)
-    if tm["windows"] != 16 or not hits:
-        fail(f"full: expected 16 windows and search hits, got {out}")
-    if not all(n > 0 for n in launches.values()):
-        fail(f"full: a kernel never launched: {launches}")
+    print(tag, json.dumps(out), flush=True)
+    if tm["windows"] != n_windows or not hits:
+        fail(f"{tag}: expected {n_windows} windows and search hits, "
+             f"got {out}")
+    check_launches(tag, launches, PROFILES[profile][1])
     if not all(math.isfinite(h.score) for h in hits):
-        fail("full: non-finite scores")
+        fail(f"{tag}: non-finite scores")
+    return launches
+
+
+def phase_capacity(torch, K) -> dict:
+    """Large-v3 shapes in the capacity profile at window batch 16: the
+    logits after the prompt and after 8 greedy steps on the int8 self
+    cache, kernels against plain versions on the same tokens, then a
+    traced window of decode steps. Returns the kernel run's launches."""
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+
+    profile, tag = "kv4+dec4+skv8", "capacity"
+    asr = WhisperASR(large_v3_config("cuda", profile, 16).asr, "cuda")
+    t0 = time.perf_counter()
+    asr.load()
+    torch.cuda.synchronize()
+    print(f"{tag} load_s {time.perf_counter() - t0:.2f} (seeded large-v3 "
+          f"weights + {profile} decode tree)", flush=True)
+    wav = long_speech(16 * 30.0, seed=6)
+    # a cache of Whisper's full decode budget: 4 + 224 positions → Cp 256
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    got, fed, state = decode_window(torch, asr, wav, steps=8,
+                                    cache_len=228)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with plain_kernels(K):
+        ref = decode_window(torch, asr, wav, steps=8, tokens=fed,
+                            cache_len=228)[0]
+    check_logits(tag, got, ref)
+    print(f"{tag} launches", json.dumps(launches), "peak_mem_gb", peak_gb,
+          flush=True)
+    check_launches(tag, launches, PROFILES[profile][1])
+    del ref
+    print(f"{tag} decode profile", json.dumps(
+        profile_decode(torch, asr, got[-1], state)), flush=True)
     return launches
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernels,spine,full",
-                    help="comma-separated subset of build,kernels,spine,full")
+    ap.add_argument("--phases",
+                    default="build,kernels,spine,full,full_kv4,capacity",
+                    help="comma-separated subset of build,kernels,spine,"
+                         "full,full_kv4,capacity")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -619,31 +918,34 @@ def main() -> None:
             print(f"--- nvcc {name} ({rep['seconds']:.1f} s)\n{rep['log']}")
 
     measured: dict = {}
-    launches: dict = {}
+    by_path: dict[str, dict] = {}
     if "kernels" in phases:
         measured = phase_kernels(torch, K)
     with tempfile.TemporaryDirectory() as tmp:
         if "spine" in phases:
-            launches = phase_spine(torch, K, Path(tmp))
+            by_path.update(phase_spine(torch, K, Path(tmp)))
     if "full" in phases:
-        launches = phase_full(torch, K)
+        by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)
+        free_card(torch)  # two large-v3 copies need not coexist
+    if "full_kv4" in phases:
+        by_path["full_kv4"] = phase_full(torch, K, "full_kv4",
+                                         "kv4+int8+lm4", 32, 32)
+        free_card(torch)
+    if "capacity" in phases:
+        by_path["capacity"] = phase_capacity(torch, K)
+        free_card(torch)
     print(f"total_s {time.perf_counter() - t_all:.1f}")
 
-    sources = {"flash_attention": "flash_attention.cu",
-               "matmul_q8w": "matmul_q8w.cu",
-               "decode_cross_attention_q8": "decode_cross_q8.cu"}
-    replaces = {
-        "flash_attention": "audio_rag_tpu/ops/pallas_kernels.py:688",
-        "matmul_q8w": "audio_rag_tpu/ops/pallas_kernels.py:368",
-        "decode_cross_attention_q8": "audio_rag_tpu/ops/pallas_kernels.py:92",
-    }
     rows = []
-    for name in K.KERNELS:
+    for name, kern in K.KERNELS.items():
         m = measured.get(name, {})
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"audio_rag_tpu_torch/csrc/{sources[name]}",
-            "replaces": replaces[name], "launches": launches.get(name, 0),
+            "source": f"audio_rag_tpu_torch/csrc/{kern.source}",
+            "replaces": kern.replaces,
+            "launches": sum(n.get(name, 0) for n in by_path.values()),
+            "launches_by_path": {path: n[name] for path, n in by_path.items()
+                                 if n.get(name)},
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),

@@ -184,3 +184,219 @@ def test_cross_q8_rejects_bad_input(no_launches):
     with pytest.raises(ValueError, match="int8"):
         K.decode_cross_attention_q8(q, k8.float(), k8, sc, sc)
 
+
+
+# -- int4-weight matmul --------------------------------------------------------------
+
+def _q4w_inputs(rng, B, din, dout):
+    from audio_rag_tpu.models.layers import quantize_linear_q4
+
+    w = rng.standard_normal((din, dout)).astype(np.float32) * 0.05
+    p4 = quantize_linear_q4(jnp.asarray(w))
+    x = rng.standard_normal((B, din)).astype(np.float32)
+    return x, np.array(p4["w4"]), np.array(p4["s"])
+
+
+def _q4w_sum_bound(x, w4, s):
+    """Exact products (bf16 × int4·bf16 fits f32): two f32 summation orders
+    over din terms differ by at most 2·din·2⁻²⁴·Σ|x·w|."""
+    w = np.abs(K.dequant_q4w(torch.from_numpy(w4), torch.from_numpy(s))
+               .numpy()).astype(np.float64)
+    xb = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    return 2 * x.shape[1] * 2.0 ** -24 * (np.abs(xb).astype(np.float64) @ w)
+
+
+@pytest.mark.parametrize("B,din,dout", [
+    (16, 1280, 1280),   # whisper large-v3 attention projection, group 80
+    (16, 512, 256),     # group 64
+    (32, 256, 640),     # group 32; window batch 32
+])
+def test_matmul_q4w_plain_matches_pallas(B, din, dout, no_launches):
+    """The Pallas kernel in interpret mode multiplies the same int4 values
+    by the same bf16-rounded scales; only the f32 summation order differs
+    (the JAX kernel test's tolerance)."""
+    rng = np.random.default_rng(0)
+    x, w4, s = _q4w_inputs(rng, B, din, dout)
+    ref = np.asarray(pk.matmul_q4w(jnp.asarray(x, jnp.bfloat16),
+                                   jnp.asarray(w4), jnp.asarray(s),
+                                   interpret=True))
+    got = K.matmul_q4w(*map(torch.from_numpy, (x, w4, s)))
+    assert got.dtype == torch.float32 and got.shape == (B, dout)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5,
+                               atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("B,din,dout", [(1, 48, 40), (3, 128, 72),
+                                        (5, 200, 17)])
+def test_matmul_q4w_plain_ragged_matches_jax_fallback(B, din, dout,
+                                                      no_launches):
+    """Shapes the Pallas kernel refuses: the JAX package's off-TPU path,
+    bf16(x) · _dequant_q4 in f32."""
+    from audio_rag_tpu.models.layers import _dequant_q4
+
+    rng = np.random.default_rng(4)
+    x, w4, s = _q4w_inputs(rng, B, din, dout)
+    ref = np.asarray(jnp.dot(
+        jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32),
+        _dequant_q4({"w4": jnp.asarray(w4), "s": jnp.asarray(s)}),
+        preferred_element_type=jnp.float32))
+    got = K.matmul_q4w(*map(torch.from_numpy, (x, w4, s)))
+    assert (np.abs(got.numpy() - ref) <= _q4w_sum_bound(x, w4, s)).all()
+
+
+@pytest.mark.parametrize("din,dout", [(256, 96), (1280, 40), (48, 8)])
+def test_dequant_q4w_is_bit_exact(din, dout):
+    from audio_rag_tpu.models.layers import _dequant_q4, quantize_linear_q4
+
+    rng = np.random.default_rng(1)
+    p4 = quantize_linear_q4(jnp.asarray(
+        rng.standard_normal((din, dout)).astype(np.float32)))
+    ref = np.asarray(_dequant_q4(p4))
+    got = K.dequant_q4w(torch.from_numpy(np.array(p4["w4"])),
+                        torch.from_numpy(np.array(p4["s"])))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_matmul_q4w_rejects_bad_input(no_launches):
+    x = torch.zeros((2, 8))
+    w4 = torch.zeros((4, 3), dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8"):
+        K.matmul_q4w(x, w4.float(), torch.zeros((1, 3)))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        K.matmul_q4w(x, w4, torch.zeros((3, 3)))  # 3 groups do not divide 8
+    with pytest.raises(ValueError, match="shape mismatch"):
+        K.matmul_q4w(x, w4[:3], torch.zeros((1, 3)))
+    with pytest.raises(ValueError, match="din/group"):
+        K.matmul_q4w(x, w4, torch.zeros(3))
+
+
+# -- int4 decode cross-attention ---------------------------------------------------
+
+def _pack_kv4(rng, B, H, hd, Ta):
+    """Random K or V quantized as the JAX package's quant4 does, no L axis."""
+    x = rng.standard_normal((B, H, Ta, hd)).astype(np.float32)
+    s = np.maximum(np.abs(x).max(axis=2, keepdims=True), 1e-9) / 7.0
+    qt = np.clip(np.round(x / s), -7, 7).astype(np.int8).transpose(0, 1, 3, 2)
+    packed = (qt[:, :, :hd // 2] & np.int8(0x0F)) | (qt[:, :, hd // 2:] << 4)
+    return packed.astype(np.int8), s.astype(np.float32)
+
+
+@pytest.mark.parametrize("B,H,M,hd,Ta", [
+    (2, 20, 1, 64, 512),  # large-v3 heads
+    (2, 4, 5, 64, 256),   # beams ride the query axis
+    (3, 2, 1, 32, 300),
+])
+def test_cross_q4_plain_matches_pallas(B, H, M, hd, Ta, no_launches):
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((B, H, M, hd)).astype(np.float32)
+    k4, ks = _pack_kv4(rng, B, H, hd, Ta)
+    v4, vs = _pack_kv4(rng, B, H, hd, Ta)
+    args = (q, k4, v4, ks, vs)
+    ref = np.asarray(pk.decode_cross_attention_q4(
+        *map(jnp.asarray, args), interpret=True))
+    got = K.decode_cross_attention_q4(*map(torch.from_numpy, args))
+    assert got.dtype == torch.float32 and got.shape == (B, H, M, hd)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+def test_cross_q4_plain_takes_every_byte(no_launches):
+    """All 256 byte values, the extreme nibbles -8 and 7 included, unpack
+    as the Pallas kernel unpacks them."""
+    rng = np.random.default_rng(4)
+    B, H, M, hd, Ta = 2, 3, 4, 64, 256
+    q = rng.standard_normal((B, H, M, hd)).astype(np.float32)
+    k4, v4 = (rng.integers(-128, 128, (B, H, hd // 2, Ta)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.01, 0.1, (B, H, 1, hd)).astype(np.float32)
+              for _ in range(2))
+    args = (q, k4, v4, ks, vs)
+    ref = np.asarray(pk.decode_cross_attention_q4(
+        *map(jnp.asarray, args), interpret=True))
+    got = K.decode_cross_attention_q4(*map(torch.from_numpy, args))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+def test_cross_q4_rejects_bad_input(no_launches):
+    q = torch.zeros((1, 2, 1, 8))
+    k4 = torch.zeros((1, 2, 4, 10), dtype=torch.int8)
+    sc = torch.ones((1, 2, 1, 8))
+    with pytest.raises(ValueError, match="scales"):
+        K.decode_cross_attention_q4(q, k4, k4, sc[..., :1], sc)
+    with pytest.raises(ValueError, match="does not match"):
+        K.decode_cross_attention_q4(q, k4[:, :, :3], k4[:, :, :3], sc, sc)
+    with pytest.raises(ValueError, match="int8"):
+        K.decode_cross_attention_q4(q, k4.float(), k4, sc, sc)
+
+
+# -- int8 decode self-attention ------------------------------------------------------
+
+def _self_case(rng, B=2, H=4, hd=32, Cp=128, n_valid=37):
+    q = rng.standard_normal((B, H, 1, hd)).astype(np.float32)
+    k8 = rng.integers(-127, 128, (B, H, hd, Cp), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (B, H, hd, Cp), dtype=np.int8)
+    ks = (0.01 + rng.random((B, H, Cp))).astype(np.float32)
+    vs = (0.01 + rng.random((B, H, Cp))).astype(np.float32)
+    valid = np.broadcast_to(np.arange(Cp) < n_valid, (B, Cp))
+    sc = np.array(pk.pack_self_scales(jnp.asarray(ks), jnp.asarray(vs),
+                                      jnp.asarray(valid)))
+    return q, k8, v8, sc
+
+
+@pytest.mark.parametrize("B,H,hd,Cp,n_valid", [
+    (2, 4, 32, 128, 37),
+    (3, 20, 64, 256, 130),  # large-v3 heads
+    (1, 4, 32, 128, 1),     # the first decode position
+])
+def test_self_q8_plain_matches_pallas(B, H, hd, Cp, n_valid, no_launches):
+    """The JAX kernel test's tolerance: scale-after-dot against the
+    kernel's order, relative to the output's scale."""
+    rng = np.random.default_rng(0)
+    args = _self_case(rng, B, H, hd, Cp, n_valid)
+    ref = np.asarray(pk.decode_self_attention_q8(
+        *map(jnp.asarray, args), interpret=True))
+    got = K.decode_self_attention_q8(*map(torch.from_numpy, args))
+    assert got.dtype == torch.float32 and got.shape == (B, H, 1, hd)
+    np.testing.assert_allclose(got.numpy(), ref,
+                               atol=1e-5 * np.abs(ref).max(), rtol=1e-5)
+
+
+def test_self_q8_mask_excludes_invalid_positions(no_launches):
+    rng = np.random.default_rng(2)
+    q, k8, v8, sc = _self_case(rng, n_valid=9)
+    base = K.decode_self_attention_q8(*map(torch.from_numpy,
+                                           (q, k8, v8, sc)))
+    k8[:, :, :, 9:] = 77
+    v8[:, :, :, 9:] = -55
+    pert = K.decode_self_attention_q8(*map(torch.from_numpy,
+                                           (q, k8, v8, sc)))
+    assert torch.equal(base, pert)
+
+
+def test_self_q8_all_masked_row_stays_finite(no_launches):
+    """-1e30, not -inf, past the write head: a row with no valid position
+    takes a uniform softmax instead of NaN, in both packages."""
+    rng = np.random.default_rng(5)
+    args = _self_case(rng, n_valid=0)
+    ref = np.asarray(pk.decode_self_attention_q8(
+        *map(jnp.asarray, args), interpret=True))
+    got = K.decode_self_attention_q8(*map(torch.from_numpy, args)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+
+
+def test_self_q8_rejects_bad_input(no_launches):
+    q = torch.zeros((1, 2, 1, 8))
+    k8 = torch.zeros((1, 2, 8, 128), dtype=torch.int8)
+    sc = torch.zeros((1, 128, 128))
+    with pytest.raises(ValueError, match="packed scales"):
+        K.decode_self_attention_q8(q, k8, k8, sc[:, :, :64])
+    with pytest.raises(ValueError, match="does not match"):
+        K.decode_self_attention_q8(q, k8[:, :, :4], k8[:, :, :4], sc)
+    with pytest.raises(ValueError, match="int8"):
+        K.decode_self_attention_q8(q, k8.float(), k8, sc)
+    big = torch.zeros((1, 64, 1, 8))
+    with pytest.raises(ValueError, match="2H"):
+        K.decode_self_attention_q8(big, torch.zeros((1, 64, 8, 128),
+                                                    dtype=torch.int8),
+                                   torch.zeros((1, 64, 8, 128),
+                                               dtype=torch.int8), sc)

@@ -123,3 +123,103 @@ def test_cross_q8_kernel_on_card(cuda, B, H, M, hd, Ta, dtype):
                     lambda: K.decode_cross_attention_q8(q, k8, v8, ks, vs))
     ref = K.decode_cross_attention_q8_plain(q, k8, v8, ks, vs)
     torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+
+
+def _q4_weight(g, din, dout, group, device):
+    """Random packed int4 bytes (every nibble value) and group scales."""
+    w4 = torch.randint(-128, 128, (din // 2, dout), generator=g,
+                       device=device, dtype=torch.int8)
+    s = torch.rand((din // group, dout), generator=g, device=device) \
+        * 0.015 + 0.005
+    return w4, s
+
+
+@pytest.mark.parametrize("B,din,dout,group,dtype", [
+    (3, 128, 512, 128, torch.float32),
+    (5, 200, 72, 40, torch.bfloat16),     # ragged dout: byte loads
+    (37, 300, 260, 3, torch.float32),     # odd group: row pairs span groups
+    (20, 1300, 77, 100, torch.bfloat16),  # din split
+    (32, 1280, 51968, 80, torch.bfloat16),  # the int4 logits head
+    (16, 1280, 1280, 80, torch.bfloat16),
+    (16, 1280, 5120, 80, torch.bfloat16),
+    (16, 5120, 1280, 128, torch.bfloat16),
+])
+def test_matmul_q4w_kernel_on_card(cuda, B, din, dout, group, dtype):
+    """Exact products (bf16 × int4·bf16 scale fits f32); two f32 summation
+    orders over din terms differ by at most 2·din·2⁻²⁴·Σ|x·w| per output."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((B, din), generator=g, device=cuda).to(dtype)
+    w4, s = _q4_weight(g, din, dout, group, cuda)
+    got = _launched("matmul_q4w", lambda: K.matmul_q4w(x, w4, s))
+    ref = K.matmul_q4w_plain(x, w4, s)
+    mag = torch.matmul(x.bfloat16().float().abs(), K.dequant_q4w(w4, s).abs())
+    assert bool(((got - ref).abs() <= 2 * din * 2.0 ** -24 * mag).all())
+
+
+@pytest.mark.parametrize("B,H,M,hd,Ta,dtype", [
+    (3, 4, 1, 32, 300, torch.float32),
+    (2, 3, 5, 64, 301, torch.bfloat16),   # Ta not a multiple of 4
+    (2, 4, 8, 64, 128, torch.float32),    # the most queries per row
+    (32, 20, 1, 64, 1500, torch.bfloat16),
+])
+def test_cross_q4_kernel_on_card(cuda, B, H, M, hd, Ta, dtype):
+    """f32 throughout; sums over Ta keys in another order."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((B, H, M, hd), generator=g, device=cuda).to(dtype)
+    k4, v4 = (torch.randint(-128, 128, (B, H, hd // 2, Ta), generator=g,
+                            device=cuda, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((B, H, 1, hd), generator=g, device=cuda) * 0.09
+              + 0.01 for _ in range(2))
+    got = _launched("decode_cross_attention_q4",
+                    lambda: K.decode_cross_attention_q4(q, k4, v4, ks, vs))
+    ref = K.decode_cross_attention_q4_plain(q, k4, v4, ks, vs)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+
+
+def _self_inputs(g, B, H, M, hd, Cp, n_valid, dtype, device):
+    q = torch.randn((B, H, M, hd), generator=g, device=device).to(dtype)
+    k8, v8 = (torch.randint(-127, 128, (B, H, hd, Cp), generator=g,
+                            device=device, dtype=torch.int8)
+              for _ in range(2))
+    sc = torch.zeros((B, Cp, 128), device=device)
+    sc[:, :, :2 * H] = torch.rand((B, Cp, 2 * H), generator=g,
+                                  device=device) * 0.02 + 0.001
+    sc[:, :, 2 * H] = torch.where(torch.arange(Cp, device=device) < n_valid,
+                                  0.0, -1e30)
+    return q, k8, v8, sc
+
+
+@pytest.mark.parametrize("B,H,M,hd,Cp,n_valid,dtype", [
+    (2, 4, 1, 32, 128, 37, torch.float32),
+    (3, 5, 2, 64, 130, 100, torch.bfloat16),  # Cp not a multiple of 4
+    (1, 4, 1, 32, 128, 0, torch.float32),     # no valid position: finite
+    (16, 20, 1, 64, 256, 40, torch.bfloat16),
+])
+def test_self_q8_kernel_on_card(cuda, B, H, M, hd, Cp, n_valid, dtype):
+    """f32 throughout; sums over Cp positions in another order, the V
+    scales applied before the normaliser instead of after."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args = _self_inputs(g, B, H, M, hd, Cp, n_valid, dtype, cuda)
+    got = _launched("decode_self_attention_q8",
+                    lambda: K.decode_self_attention_q8(*args))
+    ref = K.decode_self_attention_q8_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((2, 8), device=cuda)
+    w4 = torch.zeros((4, 4), device=cuda, dtype=torch.int8)
+    s = torch.ones((1, 4), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.matmul_q4w(x, w4.t().contiguous().t(), s)
+    q = torch.zeros((1, 2, 9, 8), device=cuda)
+    k4 = torch.zeros((1, 2, 4, 10), device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="≤ 8"):
+        K.decode_cross_attention_q4(q, k4, k4, torch.ones((1, 2, 1, 8),
+                                                          device=cuda),
+                                    torch.ones((1, 2, 1, 8), device=cuda))
+    k8 = torch.zeros((1, 2, 8, 128), device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="one CUDA device or all"):
+        K.decode_self_attention_q8(q[:, :, :1], k8, k8,
+                                   torch.zeros((1, 128, 128)))

@@ -149,3 +149,47 @@ def test_linear_q8_is_the_tpu_kernels_function():
     assert got.shape == (2, 8, 128)
     np.testing.assert_allclose(_np(got).reshape(16, 128), ref, atol=ATOL,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("din,dout", [(128, 96), (1280, 24), (48, 40)])
+def test_quantize_linear_q4_is_bit_exact(din, dout):
+    """Same groups, rounding (half to even), clipping and row-pair nibble
+    packing: identical packed bytes and scales, ties included."""
+    rng = np.random.default_rng(6)
+    w = (rng.standard_normal((din, dout)) * 0.3).astype(np.float32)
+    w[:, 0] = (np.arange(din) % 16 - 7.5)   # many exact .5 ratios to 7
+    w[:, 1] = 0.0                           # all-zero groups: the 1e-9 floor
+    ref = jl.quantize_linear_q4(jnp.asarray(w))
+    got = tl.quantize_linear_q4(torch.from_numpy(w))
+    assert got["w4"].dtype == torch.int8 and got["s"].dtype == torch.float32
+    np.testing.assert_array_equal(_np(got["w4"]), np.asarray(ref["w4"]))
+    np.testing.assert_array_equal(_np(got["s"]), np.asarray(ref["s"]))
+
+
+def test_q4_group_and_tiles_match_jax():
+    """The group size fixes the stored format; the port's choice is the
+    JAX package's for every even din up to 8192 (and it refuses odd din)."""
+    for din in range(2, 8194, 2):
+        assert tl.q4_tiles(din) == pk.q4_tiles(din), din
+        assert tl.q4_group(din) == pk.q4_group(din), din
+    assert (tl.q4_group(128), tl.q4_group(512), tl.q4_group(1280),
+            tl.q4_group(5120)) == (128, 64, 80, 128)
+    with pytest.raises(ValueError, match="even"):
+        tl.q4_group(63)
+
+
+@pytest.mark.parametrize("din", [48, 256])
+def test_linear_q8_routes_int4_by_key(din):
+    """``{"w4", "s"}`` goes to the int4 matmul: the JAX package's off-TPU
+    ``linear_q8`` result (bf16(x) · dequantized weight, bias in f32)."""
+    rng = np.random.default_rng(7)
+    p = _lin(rng, din, 40)
+    x = rng.standard_normal((2, 3, din)).astype(np.float32)
+    jp4 = jl.quantize_linear_q4(jnp.asarray(p["w"]))
+    tp4 = tl.quantize_linear_q4(torch.from_numpy(p["w"]))
+    ref = jl.linear_q8({"b": jnp.asarray(p["b"])}, jp4, jnp.asarray(x),
+                       dtype=jnp.float32)
+    got = tl.linear_q8({"b": torch.from_numpy(p["b"])}, tp4,
+                       torch.from_numpy(x), dtype=torch.float32)
+    assert got.shape == (2, 3, 40)
+    np.testing.assert_allclose(_np(got), _np(ref), atol=ATOL, rtol=1e-5)

@@ -61,12 +61,22 @@ def _spy(monkeypatch, obj, name, seen):
     monkeypatch.setattr(obj, name, spy)
 
 
-def _run_jax(path, int8, monkeypatch):
+#: profile → the ASR quantization switches both packages take
+PROFILES = {
+    "fp32": {},
+    "int8": {"cross_kv_int8": True, "decoder_int8": True},
+    "int8+dec4+skv8": {"cross_kv_int8": True, "decoder_int4": True,
+                       "self_kv_int8": True},
+    "kv4+int8+lm4": {"cross_kv_int4": True, "decoder_int8": True,
+                     "lm_head_int4": True},
+}
+
+
+def _run_jax(path, switches, monkeypatch):
     cfg = JaxConfig(**{
         "asr": {"backend": "whisper-jax", "model_size": "tiny-synth",
                 "compute_type": "float32", "vad_filter": False,
-                "temperature_fallback": False, "cross_kv_int8": int8,
-                "decoder_int8": int8},
+                "temperature_fallback": False, **switches},
         "embedding": {"backend": "bge-m3", "model": "eval-small"},
         "retrieval": {"backend": "tpu", "capacity_step": 128},
         "reranking": {"backend": "none"},
@@ -91,10 +101,10 @@ def _run_jax(path, int8, monkeypatch):
     return [s.text for s in segments], chunks, ranks
 
 
-def _run_port(path, int8, monkeypatch):
+def _run_port(path, switches, monkeypatch):
     rag = AudioRAG(AudioRAGConfig(
         asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
-                      cross_kv_int8=int8, decoder_int8=int8),
+                      **switches),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
         chunking=ChunkingConfig(max_tokens=8, min_chunk_tokens=1,
@@ -114,19 +124,25 @@ def _run_port(path, int8, monkeypatch):
 
 @pytest.mark.skipif(not (ASSETS_DIR / "asr_tiny_synth.npz").exists(),
                     reason="trained ASR asset not built")
-@pytest.mark.parametrize("profile", ["fp32", "int8"])
+@pytest.mark.parametrize("profile", list(PROFILES))
 def test_slice_matches_jax(profile, tmp_path, monkeypatch):
+    """Both packages give the same segments, chunks and rankings in each
+    decode profile. Under int4 cross K/V the JAX package garbles the turns'
+    words on tiny-synth ("gradint descescent"), so there the port is held
+    to it and not to the spoken words."""
     path = tmp_path / "turns.wav"
     write_wav(path, _turn_audio(), SR)
-    int8 = profile == "int8"
-    jax_segments, jax_chunks, jax_ranks = _run_jax(path, int8, monkeypatch)
-    segments, chunks, ranks = _run_port(path, int8, monkeypatch)
+    switches = PROFILES[profile]
+    jax_segments, jax_chunks, jax_ranks = _run_jax(path, switches,
+                                                   monkeypatch)
+    segments, chunks, ranks = _run_port(path, switches, monkeypatch)
     assert segments == jax_segments
     assert chunks == jax_chunks
     assert ranks == jax_ranks
     assert len(chunks) == 3
-    # the spoken content is what the queries find
-    assert "gradient" in ranks[0][0] and "spectrogram" in ranks[1][0]
+    if not switches.get("cross_kv_int4"):
+        # the spoken content is what the queries find
+        assert "gradient" in ranks[0][0] and "spectrogram" in ranks[1][0]
 
 
 # -- entry points ---------------------------------------------------------------

@@ -16,8 +16,10 @@ from audio_rag_tpu_torch.models import bert as tbert
 from audio_rag_tpu_torch.models import whisper as tw
 from audio_rag_tpu_torch.weights import (
     bgem3_params,
+    whisper_cross_kv,
     whisper_params,
     whisper_q8_params,
+    whisper_self_cache_q8,
 )
 
 DIMS = tw.WHISPER_PRESETS["test"]
@@ -141,3 +143,73 @@ def test_bad_int8_trees_raise(whisper_tree):
     with pytest.raises(KeyError):
         whisper_q8_params({"blocks": renamed, "logits": tree["logits"]},
                           DIMS)
+
+
+@pytest.mark.parametrize("bits,lm_head_bits", [(4, None), (8, 4)])
+def test_int4_and_mixed_decoder_trees_round_trip(whisper_tree, bits,
+                                                 lm_head_bits):
+    jp = jax.tree.map(jnp.asarray, whisper_tree)
+    tree = jax.tree.map(np.asarray, jw.quantize_decoder_weights(
+        jp, jw.WHISPER_PRESETS["test"], bits, lm_head_bits=lm_head_bits))
+    got = whisper_q8_params(tree, DIMS, "cpu")
+    pairs = list(zip(got["blocks"], tree["blocks"])) + [
+        ({"logits": got["logits"]}, {"logits": tree["logits"]})]
+    for g, r in pairs:
+        assert _flat(g).keys() == _flat(r).keys()
+        for key, leaf in _flat(r).items():
+            t = _flat(g)[key]
+            want = torch.float32 if key.endswith("/s") else torch.int8
+            assert t.dtype == want, key
+            assert torch.equal(t, torch.from_numpy(np.array(leaf))), key
+    # the int4 head: (d/2, vocab padded to 1024), group 64 over d = 64
+    assert got["logits"]["w4"].shape == (DIMS.n_text_state // 2, 1024)
+    assert got["logits"]["s"].shape == (1, 1024)
+    assert ("w4" in got["blocks"][0]["mlp_down"]) == (bits == 4)
+
+
+def test_bad_int4_trees_raise(whisper_tree):
+    jp = jax.tree.map(jnp.asarray, whisper_tree)
+    tree = jax.tree.map(np.asarray, jw.quantize_decoder_weights(
+        jp, jw.WHISPER_PRESETS["test"], 4))
+    wrong_group = {"w4": tree["logits"]["w4"],
+                   "s": np.concatenate([tree["logits"]["s"]] * 2)}
+    with pytest.raises(ValueError, match="shape"):
+        whisper_q8_params({"blocks": tree["blocks"], "logits": wrong_group},
+                          DIMS)
+    both = dict(tree["logits"], w8=tree["logits"]["w4"])
+    with pytest.raises(KeyError, match="w4"):
+        whisper_q8_params({"blocks": tree["blocks"], "logits": both}, DIMS)
+    unsigned = {"w4": tree["logits"]["w4"].view(np.uint8),
+                "s": tree["logits"]["s"]}
+    with pytest.raises(ValueError, match="dtype"):
+        whisper_q8_params({"blocks": tree["blocks"], "logits": unsigned},
+                          DIMS)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_cross_kv_and_self_cache_round_trip(whisper_tree, bits):
+    dims = jw.WHISPER_PRESETS["test"]
+    jp = jax.tree.map(jnp.asarray, whisper_tree)
+    enc = np.random.default_rng(0).standard_normal(
+        (2, dims.n_audio_ctx, dims.n_text_state)).astype(np.float32)
+    kv = jax.tree.map(np.asarray, jw.precompute_cross_kv(
+        jp, dims, jnp.asarray(enc), jnp.float32, quantize=True, bits=bits))
+    got = whisper_cross_kv(kv, DIMS)
+    for g, r in zip(got, kv):
+        assert torch.equal(g, torch.from_numpy(np.array(r)))
+    sk = np.random.default_rng(1).standard_normal(
+        (dims.n_text_layer, 2, dims.n_text_head, 20, 32)).astype(np.float32)
+    cache = jax.tree.map(np.asarray, jw.quantize_self_cache(
+        jnp.asarray(sk), jnp.asarray(-sk), 5))
+    got = whisper_self_cache_q8(cache, DIMS)
+    for g, r in zip(got, cache):
+        assert torch.equal(g, torch.from_numpy(np.array(r)))
+    with pytest.raises(ValueError, match="axis 3"):
+        whisper_cross_kv((kv[0][:, :, :, :3],) + tuple(kv[1:]), DIMS)
+    with pytest.raises(ValueError, match="cross K/V array 2"):
+        whisper_cross_kv(kv[:2] + (kv[2][:, :1],) + kv[3:4], DIMS)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        whisper_self_cache_q8((cache[0][..., :100], cache[1][..., :100],
+                               cache[2][:, :, :100]), DIMS)
+    with pytest.raises(ValueError, match="self cache array 2"):
+        whisper_self_cache_q8(cache[:2] + (cache[2][..., :64],), DIMS)
