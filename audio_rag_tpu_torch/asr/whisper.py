@@ -1,17 +1,21 @@
-"""Batched-window Whisper ASR backend of the port (greedy path).
+"""Batched-window Whisper ASR backend of the port.
 
 Counterpart of ``audio_rag_tpu/asr/whisper_jax.py``: decode → slice into
 windows of the model's audio context → log-mel of a window batch → encode →
-greedy decode of all windows of the batch at once → strip special tokens,
+decode of all windows of the batch at once → strip special tokens,
 no-speech gate, segments → interpolated word times. The parameters come
 from the committed asset for "tiny-synth" and from a seeded init for the
 other presets; ``compute_type="bfloat16"`` stores and computes in bf16;
 the quantization switches of ``ASRConfig`` pick the decode profile as the
 JAX backend does (int4 beats int8; ``lm_head_int4`` only with
 ``decoder_int8`` and without ``decoder_int4``; ``self_kv_int8``), and with
-it the quantized decode kernels. Not ported here: VAD, temperature
-fallback, language detection, beam and speculative decoding, DTW word
-timestamps.
+it the quantized decode kernels. The decode strategy is chosen as the JAX
+backend's ``_program`` chooses it: beam search under ``decode="beam"``
+(its avg-logprob and no-speech probability are 0, so the no-speech gate
+never drops a window); else speculative greedy under ``speculative_k > 0``
+with a prompt of ≤ 16 tokens; else greedy. Beam and speculative ignore
+``self_kv_int8``. Not ported here: VAD, temperature fallback, language
+detection, conditioning on previous text, DTW word timestamps.
 """
 
 from __future__ import annotations
@@ -32,12 +36,14 @@ from audio_rag_tpu_torch.models.whisper import (
     WHISPER_PRESETS,
     SpecialTokens,
     WhisperDims,
+    beam_decode,
     char_decode,
     encode,
     greedy_decode,
     init_whisper,
     language_offset,
     quantize_decoder_weights,
+    speculative_greedy_decode,
 )
 from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_batch
 from audio_rag_tpu_torch.weights import whisper_params
@@ -48,12 +54,13 @@ MAX_NEW_TOKENS = 224  # ≤ n_text_ctx/2, as Whisper decodes per window
 
 
 class WhisperASR:
-    """Greedy batched-window Whisper on one device.
+    """Batched-window Whisper on one device.
 
     ``timings`` accumulates, per :meth:`transcribe` call, host-clock seconds
     of the mel, encode and decode stages (each ends in a device
-    synchronize on CUDA), the decode-loop steps run and the windows and
-    batches seen.
+    synchronize on CUDA), the decode-loop iterations run (greedy steps,
+    beam steps or speculative verify passes) and the windows and batches
+    seen.
     """
 
     def __init__(self, config: ASRConfig | None = None,
@@ -200,15 +207,8 @@ class WhisperASR:
                                     st.transcribe, st.no_timestamps]],
                                   np.int64), (B, 1))
         P = prompt.shape[1]
-        max_new = min(self._max_new(), self.dims.n_text_ctx - P)
-        toks, avg_lp, no_speech = greedy_decode(
-            self._params, self.dims, enc,
-            torch.from_numpy(prompt).to(self.device), max_new, st.eot,
-            dtype=self.dtype, no_speech_id=st.no_speech,
-            cross_kv_quantize=bool(self.cross_kv_bits),
-            cross_kv_bits=self.cross_kv_bits or 8,
-            decoder_q8=self._params_q8,
-            self_kv_int8=self.config.self_kv_int8)
+        toks, avg_lp, no_speech, steps = self._decode(
+            enc, torch.from_numpy(prompt).to(self.device))
         tokens = toks.cpu().numpy()
         avg_lp = avg_lp.cpu().numpy()
         no_speech = no_speech.cpu().numpy()
@@ -216,7 +216,7 @@ class WhisperASR:
         self.timings["mel_s"] += t1 - t0
         self.timings["encode_s"] += t2 - t1
         self.timings["decode_s"] += t3 - t2
-        self.timings["decode_steps"] += _loop_steps(tokens, P, st.eot)
+        self.timings["decode_steps"] += steps
         self.timings["windows"] += n_real
         self.timings["batches"] += 1
 
@@ -234,6 +234,32 @@ class WhisperASR:
                 s.avg_logprob = round(float(avg_lp[j]), 4)
             out.extend(segs)
         return out
+
+    def _decode(self, enc: torch.Tensor, prompt: torch.Tensor):
+        """(tokens, avg_logprob, no_speech_prob, loop iterations) of the
+        configured strategy."""
+        c, st = self.config, self.tokens
+        B, P = prompt.shape
+        max_new = min(self._max_new(), self.dims.n_text_ctx - P)
+        common = dict(dtype=self.dtype,
+                      cross_kv_quantize=bool(self.cross_kv_bits),
+                      cross_kv_bits=self.cross_kv_bits or 8,
+                      decoder_q8=self._params_q8)
+        if c.decode == "beam":
+            toks, steps = beam_decode(
+                self._params, self.dims, enc, prompt, max_new, st.eot,
+                beam_size=c.beam_size, **common)
+            zeros = torch.zeros((B,), device=enc.device)
+            return toks, zeros, zeros, steps
+        if c.speculative_k > 0 and P <= 16:
+            return speculative_greedy_decode(
+                self._params, self.dims, enc, prompt, max_new, st.eot,
+                spec_k=c.speculative_k, no_speech_id=st.no_speech, **common)
+        toks, avg_lp, no_speech = greedy_decode(
+            self._params, self.dims, enc, prompt, max_new, st.eot,
+            no_speech_id=st.no_speech, self_kv_int8=c.self_kv_int8, **common)
+        return (toks, avg_lp, no_speech,
+                _loop_steps(toks.cpu().numpy(), P, st.eot))
 
     def _strip_special(self, ids: np.ndarray, prompt_len: int) -> list[int]:
         """Drop the prompt and control tokens ([eot, timestamp_base));

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from audio_rag_tpu_torch.core.exceptions import ConfigError
+
 __all__ = [
     "ASRConfig",
     "ChunkingConfig",
@@ -44,12 +46,32 @@ class ASRConfig:
     #: logits head only
     lm_head_int4: bool = False
     #: int8 self-attention cache with per-position scales (int8 decode self
-    #: kernel); greedy decoding only, as the port's is
+    #: kernel); greedy decoding only (beam and speculative ignore it)
     self_kv_int8: bool = False
+    #: decode strategy: "greedy" or "beam" (hypothesis reorder from the
+    #: ``BEAM_REORDER`` environment variable, read per call: "lazy"
+    #: (default), "onehot" or "kernel")
+    decode: str = "greedy"
+    #: hypotheses per window under ``decode="beam"``, 1–16
+    beam_size: int = 5
+    #: greedy decode in verify blocks of this many tokens against the
+    #: n-gram drafter (same tokens as plain greedy); 0 disables, ≤ 8
+    speculative_k: int = 0
     no_speech_threshold: float = 0.6
     logprob_threshold: float = -1.0
     #: seed of the weights of presets without a committed asset
     seed: int = 0
+
+    def __post_init__(self):
+        if self.decode not in ("greedy", "beam"):
+            raise ConfigError(f"decode must be 'greedy' or 'beam', got "
+                              f"{self.decode!r}")
+        if not 1 <= self.beam_size <= 16:
+            raise ConfigError(f"beam_size must be in [1, 16], got "
+                              f"{self.beam_size}")
+        if not 0 <= self.speculative_k <= 8:
+            raise ConfigError(f"speculative_k must be in [0, 8], got "
+                              f"{self.speculative_k}")
 
 
 @dataclass

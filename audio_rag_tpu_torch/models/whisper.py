@@ -1,28 +1,36 @@
-"""Whisper encoder/decoder on tensors with params in dicts — greedy path.
+"""Whisper encoder/decoder on tensors with params in dicts: greedy,
+speculative greedy and beam decoding.
 
 Counterpart of ``audio_rag_tpu/models/whisper.py``: the same param tree
 (per-layer blocks stacked on a leading L axis), the same presets, special
-tokens and char codec, and the same functions for the greedy path:
-:func:`encode`, :func:`precompute_cross_kv` (bf16/f32, int8 and int4),
+tokens and char codec, and the same functions: :func:`encode`,
+:func:`precompute_cross_kv` (bf16/f32, int8 and int4),
 :func:`decoder_forward` (teacher-forced priming, no cross weights),
 :func:`_cross_with_kv`, :func:`quantize_decoder_weights` (8 or 4 bits, or
 int8 blocks with an int4 logits head), :func:`quantize_self_cache`,
-:func:`decoder_step` (greedy, bf16/f32 or int8 self cache) and
-:func:`greedy_decode`. ``lax.scan`` and ``while_loop`` become Python
-loops; KV caches are updated in place.
+:func:`decoder_step` (greedy, beams in the physical or lazy-ancestry
+layout, or the int8 self cache), :func:`greedy_decode`,
+:func:`ngram_draft`, :func:`decoder_block_verify`,
+:func:`speculative_greedy_decode` and :func:`beam_decode`, whose loop body
+is :func:`beam_step`. ``lax.scan`` and ``while_loop`` become Python loops;
+KV caches are updated in place.
 
 Kernel routes on CUDA (plain versions on the CPU, see ``ops/kernels.py``):
 the encoder's self-attention goes to ``flash_attention``; with int8 or
-int4 cross K/V the decode loop's cross-attention (≤ 8 queries per row)
-goes to ``decode_cross_attention_q8`` or ``_q4``; with
-``quantize_decoder_weights`` the decode loop's weight matmuls go to
-``matmul_q8w`` or ``matmul_q4w``; with the int8 self cache the decode
-loop's self-attention goes to ``decode_self_attention_q8``.
+int4 cross K/V the decode loops' cross-attention (≤ 8 queries per row:
+one token, K beams or a k-token verify block) goes to
+``decode_cross_attention_q8`` or ``_q4``; with
+``quantize_decoder_weights`` the decode loops' weight matmuls go to
+``matmul_q8w`` or ``matmul_q4w``; with the int8 self cache the greedy
+loop's self-attention goes to ``decode_self_attention_q8``; beam search's
+``reorder="kernel"`` reorders the self caches with ``beam_reorder_kv``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 
 import torch
 import torch.nn.functional as F
@@ -61,7 +69,17 @@ __all__ = [
     "pack_self_scales",
     "quantize_self_cache",
     "decoder_step",
+    "prime_decode",
     "greedy_decode",
+    "ngram_draft",
+    "decoder_block_verify",
+    "speculative_greedy_decode",
+    "BEAM_REORDERS",
+    "BeamState",
+    "beam_start",
+    "beam_step",
+    "beam_best",
+    "beam_decode",
 ]
 
 
@@ -531,6 +549,29 @@ def quantize_self_cache(sk: torch.Tensor, sv: torch.Tensor, n_valid: int
     return k8, v8, pack_self_scales(ks, vs, valid)
 
 
+def _decode_linear(p8: Params | None, dtype: torch.dtype):
+    """The decode loops' linear: the f32/bf16 weights, or with ``p8`` (one
+    layer of a :func:`quantize_decoder_weights` tree) their int8 or int4
+    copy through ``matmul_q8w`` or ``matmul_q4w``."""
+    def lin(p: Params, key8: str, x: torch.Tensor) -> torch.Tensor:
+        if p8 is None:
+            return linear(p, x, dtype)
+        return linear_q8(p, p8[key8], x, dtype)
+    return lin
+
+
+def _logits(params: Params, dims: WhisperDims, q8: Params | None,
+            x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Final norm and logits head (the token table, or ``q8``'s quantized
+    copy padded to a multiple of 128 columns) → (..., vocab) f32."""
+    dec = params["decoder"]
+    x = layer_norm(dec["ln"], x)
+    if q8 is None:
+        return mm_f32(x, dec["tok_emb"]["table"].to(dtype).t())
+    return linear_q8({}, q8["logits"], x,
+                     dtype=torch.float32)[..., :dims.n_vocab]
+
+
 def decoder_step(
     params: Params,
     dims: WhisperDims,
@@ -541,30 +582,50 @@ def decoder_step(
     dtype: torch.dtype = torch.bfloat16,
     q8: Params | None = None,
     self_kv_int8: bool = False,
+    beams: int = 1,
+    beam_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
-    """One greedy decode step with the layer loop unrolled. Writes this
-    step's K/V into ``self_cache`` IN PLACE at ``pos``. With ``q8`` the
-    weight matmuls read int8 or int4 weights through ``matmul_q8w`` or
+    """One decode step with the layer loop unrolled. Writes this step's
+    K/V into ``self_cache`` IN PLACE at ``pos``. With ``q8`` the weight
+    matmuls read int8 or int4 weights through ``matmul_q8w`` or
     ``matmul_q4w``. ``self_cache`` is (sk, sv), each (L, B, H, C, hd), or
     with ``self_kv_int8`` the triple of :func:`quantize_self_cache`: the
     new position's K/V are then quantized on write (amax over hd, from the
     projections after their cast to ``dtype``), its packed scale row is
     written with the mask lane 0 (valid), and the self-attention reads the
-    int8 cache through ``decode_self_attention_q8``. Returns (logits
-    (B, vocab) f32, self_cache)."""
+    int8 cache through ``decode_self_attention_q8``.
+
+    ``beams=K``: ``tok`` and the self cache carry B = G·K beam rows while
+    the cross K/V carries G rows; the K beams of a group fold into the
+    query axis of their group's cross-attention (M = K queries per row of
+    the decode cross kernels). ``beam_mask`` (G, K, K, C) bool switches
+    the self-attention to the lazy-ancestry layout: the cache is
+    (L, G, H, K, C, hd) in birth order, each beam writes its own row, and
+    beam n of group g reads position c of row k where
+    ``beam_mask[g, n, k, c]``; the scores of all (k, c) pairs are masked
+    with -1e30 and softmaxed over the flattened (k, c) axis. The int8 self
+    cache is greedy-only. Returns (logits (B, vocab) f32, self_cache)."""
     dec = params["decoder"]
     quantized = len(cross_kv) == 4
     ck, cv = cross_kv[0], cross_kv[1]
     ks, vs = (cross_kv[2], cross_kv[3]) if quantized else (None, None)
     B = tok.shape[0]
     H = dims.n_text_head
-    hd = dims.n_text_state // H
+    d = dims.n_text_state
+    hd = d // H
     device = tok.device
+    lazy = beam_mask is not None
+    if self_kv_int8 and (lazy or beams > 1):
+        raise ValueError("self_kv_int8 is greedy-only")
 
     x = dec["tok_emb"]["table"].to(dtype)[tok]  # (B, 1, d)
     x = x + dec["pos_emb"][pos:pos + 1].to(dtype)
     if self_kv_int8:
         sk, sv, scp = self_cache  # the packed scales carry the mask
+    elif lazy:
+        sk, sv = self_cache
+        G, C = B // beams, sk.shape[4]
+        amask = beam_mask.reshape(G, 1, beams, beams * C)
     else:
         sk, sv = self_cache
         mask = torch.arange(sk.shape[3], device=device) < pos + 1  # (C,)
@@ -573,12 +634,7 @@ def decoder_step(
     for i in range(dims.n_text_layer):
         p = take_layer(dec["blocks"], i)
         p8 = None if q8 is None else q8["blocks"][i]
-
-        def lin(pp, key8, xx):
-            if p8 is None:
-                return linear(pp, xx, dtype)
-            return linear_q8(pp, p8[key8], xx, dtype)
-
+        lin = _decode_linear(p8, dtype)
         xn = layer_norm(p["ln1"], x)
         q = lin(p["attn"]["q"], "attn_q", xn).reshape(B, 1, H, hd)
         k = lin(p["attn"]["k"], "attn_k", xn).reshape(B, 1, H, hd)
@@ -598,6 +654,18 @@ def decoder_step(
             scp[i, :, pos] = row  # lane 2H stays 0: this position is valid
             o = kernels.decode_self_attention_q8(q.contiguous(), sk[i],
                                                  sv[i], scp[i])
+        elif lazy:
+            def groups(t):  # (B, H, hd) → (G, H, K, hd)
+                return t.reshape(G, beams, H, hd).transpose(1, 2)
+
+            sk[i, :, :, :, pos] = groups(k[:, 0]).to(sk.dtype)
+            sv[i, :, :, :, pos] = groups(v[:, 0]).to(sv.dtype)
+            s = mm_f32(groups(q[:, :, 0]) * scale,
+                       sk[i].reshape(G, H, beams * C, hd).transpose(-1, -2))
+            s = s.masked_fill(~amask, -1e30)  # (G, H, K, K·C)
+            probs = torch.softmax(s, dim=-1).to(dtype)
+            o = mm_f32(probs, sv[i].reshape(G, H, beams * C, hd))
+            o = o.to(dtype).transpose(1, 2).reshape(B, H, 1, hd)
         else:
             sk[i, :, :, pos] = k[:, 0].to(sk.dtype)
             sv[i, :, :, pos] = v[:, 0].to(sv.dtype)
@@ -605,25 +673,58 @@ def decoder_step(
             s = s.masked_fill(~mask, -1e30)
             probs = torch.softmax(s, dim=-1).to(dtype)
             o = mm_f32(probs, sv[i])
-        o = o.to(dtype).transpose(1, 2).reshape(B, 1, dims.n_text_state)
+        o = o.to(dtype).transpose(1, 2).reshape(B, 1, d)
         x = x + lin(p["attn"]["o"], "attn_o", o)
-        x = x + _cross_with_kv(p, x, ck[i], cv[i], H, dtype,
-                               None if ks is None else ks[i],
-                               None if vs is None else vs[i], q8=p8)
-        if p8 is None:
-            x = x + mlp(p["mlp"], layer_norm(p["ln_mlp"], x), dtype)
-        else:
-            h = gelu(lin(p["mlp"]["up"], "mlp_up",
-                         layer_norm(p["ln_mlp"], x)))
-            x = x + lin(p["mlp"]["down"], "mlp_down", h)
+        # beams fold into the query axis of their group's cross-attention
+        h = _cross_with_kv(p, x.reshape(B // beams, beams, d), ck[i], cv[i],
+                           H, dtype, None if ks is None else ks[i],
+                           None if vs is None else vs[i], q8=p8)
+        x = x + h.reshape(B, 1, d)
+        h = gelu(lin(p["mlp"]["up"], "mlp_up", layer_norm(p["ln_mlp"], x)))
+        x = x + lin(p["mlp"]["down"], "mlp_down", h)
 
-    x = layer_norm(dec["ln"], x)
-    if q8 is None:
-        logits = mm_f32(x[:, 0], dec["tok_emb"]["table"].to(dtype).t())
-    else:
-        logits = linear_q8({}, q8["logits"], x[:, 0],
-                           dtype=torch.float32)[:, :dims.n_vocab]
+    logits = _logits(params, dims, q8, x[:, 0], dtype)
     return logits, ((sk, sv, scp) if self_kv_int8 else (sk, sv))
+
+
+def prime_decode(params: Params, dims: WhisperDims, enc: torch.Tensor,
+                 prompt: torch.Tensor, cache_len: int, dtype: torch.dtype,
+                 decoder_q8: Params | None, cross_kv_quantize: bool,
+                 cross_kv_bits: int):
+    """The decode loops' common start: the cross K/V of ``enc`` and a
+    (L, B, H, cache_len, hd) self cache primed with ``prompt``. With
+    quantized cross K/V and a short prompt (≤ 16 tokens) the prompt primes
+    through unrolled :func:`decoder_step` calls (quantized weights and
+    kernels included); longer prompts and the unquantized path prime
+    teacher-forced. Returns (cross_kv, (sk, sv), log-probabilities after
+    the prompt (B, vocab) f32)."""
+    B, P = prompt.shape
+    H = dims.n_text_head
+    hd = dims.n_text_state // H
+    cross_kv = precompute_cross_kv(params, dims, enc, dtype,
+                                   quantize=cross_kv_quantize,
+                                   bits=cross_kv_bits)
+    sk = torch.zeros((dims.n_text_layer, B, H, cache_len, hd), dtype=dtype,
+                     device=enc.device)
+    sv = torch.zeros_like(sk)
+    if cross_kv_quantize and P <= 16:
+        logits = None
+        for t in range(P):
+            logits, (sk, sv) = decoder_step(
+                params, dims, prompt[:, t:t + 1], cross_kv, t, (sk, sv),
+                dtype=dtype, q8=decoder_q8)
+    else:
+        logits, _ = decoder_forward(params, dims, prompt, cross_kv,
+                                    pos_offset=0, self_cache=(sk, sv),
+                                    dtype=dtype)
+        logits = logits[:, -1, :]
+    return cross_kv, (sk, sv), torch.log_softmax(logits.float(), dim=-1)
+
+
+def _no_speech(step0: torch.Tensor, no_speech_id: int | None) -> torch.Tensor:
+    if no_speech_id is None:
+        return torch.zeros(step0.shape[:1], device=step0.device)
+    return torch.exp(step0[:, no_speech_id])
 
 
 @torch.inference_mode()
@@ -647,42 +748,18 @@ def greedy_decode(
     positions past EOT filled with ``eot``, as the JAX package's
     ``greedy_decode`` at temperature 0. ``cross_kv_bits`` (8 or 4) picks
     the quantized cross K/V; ``decoder_q8`` is a
-    :func:`quantize_decoder_weights` tree. With quantized cross K/V and a
-    short prompt (≤ 16 tokens) the prompt primes through unrolled
-    :func:`decoder_step` calls (quantized weights and kernels included);
-    longer prompts and the unquantized path prime teacher-forced.
-    ``self_kv_int8`` converts the primed cache once
-    (:func:`quantize_self_cache`) and runs the loop on the int8 self cache.
+    :func:`quantize_decoder_weights` tree; the prompt primes as
+    :func:`prime_decode` says. ``self_kv_int8`` converts the primed cache
+    once (:func:`quantize_self_cache`) and runs the loop on the int8 self
+    cache.
     """
     B, P = prompt.shape
-    L = dims.n_text_layer
-    H = dims.n_text_head
-    hd = dims.n_text_state // H
     total = P + max_new_tokens
-    cache_len = min(dims.n_text_ctx, total)
     device = enc.device
-
-    cross_kv = precompute_cross_kv(params, dims, enc, dtype,
-                                   quantize=cross_kv_quantize,
-                                   bits=cross_kv_bits)
-    sk = torch.zeros((L, B, H, cache_len, hd), dtype=dtype, device=device)
-    sv = torch.zeros_like(sk)
-
-    if cross_kv_quantize and P <= 16:
-        logits = None
-        for t in range(P):
-            logits, (sk, sv) = decoder_step(
-                params, dims, prompt[:, t:t + 1], cross_kv, t, (sk, sv),
-                dtype=dtype, q8=decoder_q8)
-        step0 = torch.log_softmax(logits.float(), dim=-1)
-    else:
-        logits, _ = decoder_forward(params, dims, prompt, cross_kv,
-                                    pos_offset=0, self_cache=(sk, sv),
-                                    dtype=dtype)
-        step0 = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
-    no_speech_prob = (torch.exp(step0[:, no_speech_id])
-                      if no_speech_id is not None
-                      else torch.zeros((B,), device=device))
+    cross_kv, (sk, sv), step0 = prime_decode(
+        params, dims, enc, prompt, min(dims.n_text_ctx, total), dtype,
+        decoder_q8, cross_kv_quantize, cross_kv_bits)
+    no_speech_prob = _no_speech(step0, no_speech_id)
 
     rows = torch.arange(B, device=device)
     first = torch.argmax(step0, dim=-1)
@@ -711,3 +788,358 @@ def greedy_decode(
         finished = finished | (nxt == eot)
         i += 1
     return tokens, sum_lp / torch.clamp(n_decoded, min=1.0), no_speech_prob
+
+
+# -- speculative greedy decode ------------------------------------------------
+
+def ngram_draft(tokens: torch.Tensor, n_tok: torch.Tensor,
+                draft_len: int) -> torch.Tensor:
+    """Prompt-lookup drafts (B, draft_len): what followed the latest earlier
+    occurrence of each row's final 2-gram (``tokens`` (B, total) valid
+    through index ``n_tok`` (B,)); rows without a match repeat their last
+    token."""
+    B, total = tokens.shape
+    device = tokens.device
+    rows = torch.arange(B, device=device)
+    g1 = tokens[rows, n_tok]
+    g0 = tokens[rows, torch.clamp(n_tok - 1, min=0)]
+    idx = torch.arange(total - 1, device=device)
+    m = ((tokens[:, :-1] == g0[:, None]) & (tokens[:, 1:] == g1[:, None])
+         & (idx[None, :] + 1 < n_tok[:, None]))
+    s = torch.where(m, idx[None, :], -1).amax(dim=1)  # latest match or -1
+    src = torch.clamp(s[:, None] + 2
+                      + torch.arange(draft_len, device=device)[None, :],
+                      0, total - 1)
+    drafts = tokens.gather(1, src)
+    return torch.where(s[:, None] >= 0, drafts, g1[:, None])
+
+
+def decoder_block_verify(
+    params: Params,
+    dims: WhisperDims,
+    block: torch.Tensor,  # (B, k) int: [cur, draft_1 .. draft_{k-1}]
+    cross_kv,
+    pos: torch.Tensor,  # (B,) int: each row's cache index of block[:, 0]
+    self_cache: tuple[torch.Tensor, torch.Tensor],
+    dtype: torch.dtype = torch.bfloat16,
+    q8: Params | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Teacher-forced k-token step with per-row positions, the verify pass
+    of speculative decoding. Row b writes its k new K/V IN PLACE at cache
+    slots pos_b .. pos_b + k - 1 (clipped to the cache), query j attends
+    to the slots ≤ pos_b + j, and the k queries ride the query axis of the
+    cross-attention (the decode cross kernels for k ≤ 8). Returns (logits
+    (B, k, vocab) f32, self_cache)."""
+    dec = params["decoder"]
+    quantized = len(cross_kv) == 4
+    ck, cv = cross_kv[0], cross_kv[1]
+    ks, vs = (cross_kv[2], cross_kv[3]) if quantized else (None, None)
+    sk, sv = self_cache
+    B, k = block.shape
+    H = dims.n_text_head
+    d = dims.n_text_state
+    hd = d // H
+    C = sk.shape[3]
+    device = block.device
+    at = pos[:, None] + torch.arange(k, device=device)[None, :]  # (B, k)
+
+    x = dec["tok_emb"]["table"].to(dtype)[block]  # (B, k, d)
+    x = x + dec["pos_emb"][torch.clamp(at, 0, dims.n_text_ctx - 1)].to(dtype)
+    cpos = torch.clamp(at, 0, C - 1)
+    mask = (torch.arange(C, device=device)[None, None, None, :]
+            <= cpos[:, None, :, None])  # (B, 1, k, C)
+    rows = torch.arange(B, device=device)[:, None]
+    scale = hd ** -0.5
+
+    for i in range(dims.n_text_layer):
+        p = take_layer(dec["blocks"], i)
+        p8 = None if q8 is None else q8["blocks"][i]
+        lin = _decode_linear(p8, dtype)
+        xn = layer_norm(p["ln1"], x)
+        q = lin(p["attn"]["q"], "attn_q", xn).reshape(B, k, H, hd)
+        kk = lin(p["attn"]["k"], "attn_k", xn).reshape(B, k, H, hd)
+        vv = lin(p["attn"]["v"], "attn_v", xn).reshape(B, k, H, hd)
+        # per-row scatter: sk[i][b, :, cpos[b, j]] = kk[b, j]
+        sk[i][rows, :, cpos] = kk.to(sk.dtype)
+        sv[i][rows, :, cpos] = vv.to(sv.dtype)
+        s = mm_f32(q.transpose(1, 2) * scale, sk[i].transpose(-1, -2))
+        s = s.masked_fill(~mask, -1e30)
+        probs = torch.softmax(s, dim=-1).to(dtype)
+        o = mm_f32(probs, sv[i]).to(dtype).transpose(1, 2).reshape(B, k, d)
+        x = x + lin(p["attn"]["o"], "attn_o", o)
+        x = x + _cross_with_kv(p, x, ck[i], cv[i], H, dtype,
+                               None if ks is None else ks[i],
+                               None if vs is None else vs[i], q8=p8)
+        h = gelu(lin(p["mlp"]["up"], "mlp_up", layer_norm(p["ln_mlp"], x)))
+        x = x + lin(p["mlp"]["down"], "mlp_down", h)
+
+    return _logits(params, dims, q8, x, dtype), (sk, sv)
+
+
+@torch.inference_mode()
+def speculative_greedy_decode(
+    params: Params,
+    dims: WhisperDims,
+    enc: torch.Tensor,  # (B, Ta, d)
+    prompt: torch.Tensor,  # (B, P) int
+    max_new_tokens: int,
+    eot: int,
+    spec_k: int = 8,
+    dtype: torch.dtype = torch.bfloat16,
+    no_speech_id: int | None = None,
+    cross_kv_quantize: bool = False,
+    cross_kv_bits: int = 8,
+    decoder_q8: Params | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Greedy decode in verify blocks of ``spec_k`` tokens: each iteration
+    drafts ``spec_k - 1`` tokens with :func:`ngram_draft` and verifies the
+    block in one :func:`decoder_block_verify` pass; a draft survives only
+    where it equals the model's own argmax, and the argmax after the last
+    survivor is emitted too, so the output is :func:`greedy_decode`'s.
+    Rows advance by their own acceptance counts, stop at their first EOT
+    and never write past the buffer. Returns (tokens (B, P+max_new),
+    avg_logprob (B,), no_speech_prob (B,), verify iterations run)."""
+    B, P = prompt.shape
+    k = spec_k
+    total = P + max_new_tokens
+    device = enc.device
+    # a block write may reach k - 1 slots past a row's last real position
+    cross_kv, cache, step0 = prime_decode(
+        params, dims, enc, prompt, min(dims.n_text_ctx, total) + k, dtype,
+        decoder_q8, cross_kv_quantize, cross_kv_bits)
+    no_speech_prob = _no_speech(step0, no_speech_id)
+
+    rows = torch.arange(B, device=device)
+    j = torch.arange(k, device=device)[None, :]
+    first = torch.argmax(step0, dim=-1)
+    sum_lp = step0[rows, first]
+    tokens = torch.full((B, total), eot, dtype=torch.long, device=device)
+    tokens[:, :P] = prompt
+    tokens[:, P] = first
+    finished = first == eot
+    n_decoded = torch.ones((B,), device=device)
+    n_tok = torch.full((B,), P, dtype=torch.long, device=device)
+    steps = 0
+    while not bool(finished.all()):
+        block = torch.cat([tokens[rows, n_tok][:, None],
+                           ngram_draft(tokens, n_tok, k - 1)], dim=1)
+        logits, cache = decoder_block_verify(
+            params, dims, block, cross_kv, n_tok, cache, dtype=dtype,
+            q8=decoder_q8)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        f = torch.argmax(logp, dim=-1)  # (B, k)
+        f_lp = logp.gather(-1, f[..., None])[..., 0]
+        # accepted drafts are the argmaxes f[:, :a], plus the bonus f[:, a]
+        a = torch.cumprod((block[:, 1:] == f[:, :-1]).long(), dim=1).sum(1)
+        is_eot = f == eot
+        a = torch.where(is_eot.any(1),
+                        torch.minimum(a, is_eot.int().argmax(1)), a)
+        a = torch.minimum(a, total - 2 - n_tok)  # emission bound
+        write = (j <= a[:, None]) & ~finished[:, None]  # (B, k)
+        dst = n_tok[:, None] + 1 + j
+        tokens[rows[:, None].expand(B, k)[write], dst[write]] = f[write]
+        sum_lp = sum_lp + torch.where(write, f_lp, 0.0).sum(1)
+        n_decoded = n_decoded + write.float().sum(1)
+        n_tok = n_tok + torch.where(finished, 0, a + 1)
+        finished = finished | (is_eot & write).any(1) | (n_tok >= total - 1)
+        steps += 1
+    return (tokens, sum_lp / torch.clamp(n_decoded, min=1.0), no_speech_prob,
+            steps)
+
+
+# -- beam search --------------------------------------------------------------
+
+#: hypothesis-reorder strategies of :func:`beam_decode`
+BEAM_REORDERS = ("lazy", "onehot", "kernel")
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values along the last axis and their indices,
+    equal values in index order (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none for ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@dataclasses.dataclass
+class BeamState:
+    """The beam loop's carry. Physical layouts ("onehot", "kernel"): the
+    caches are (L, B·K, H, C, hd) and each step reorders them by source
+    beam into new tensors (the previous pair is freed, so two pairs live
+    at once). "lazy": the caches are (L, B, H, K, C, hd) in birth order,
+    updated in place, and ``mask`` (B, K, K, C) bool routes each beam to
+    its history."""
+    tokens: torch.Tensor    # (B, K, total) hypotheses
+    sum_lp: torch.Tensor    # (B, K) f32 summed log-probabilities
+    finished: torch.Tensor  # (B, K) bool: the hypothesis has emitted EOT
+    pos: int                # position of the tokens the next step feeds
+    cache: tuple[torch.Tensor, torch.Tensor]
+    mask: torch.Tensor | None
+    reorder: str
+    eot: int
+
+    @property
+    def done(self) -> bool:
+        return (self.pos >= self.tokens.shape[2] - 1
+                or bool(self.finished.all()))
+
+
+def beam_start(cache: tuple[torch.Tensor, torch.Tensor],
+               logp0: torch.Tensor, prompt: torch.Tensor, total: int,
+               beam_size: int, eot: int, reorder: str) -> BeamState:
+    """The beam loop's first carry from a cache primed over B rows and the
+    log-probabilities after the prompt (:func:`prime_decode`): the top-K
+    first tokens per row; the primed cache replicated K× (physical layouts) or
+    placed at birth row 0 with every beam's prompt positions pointing
+    there (lazy). ``cache`` is read, not written."""
+    if reorder not in BEAM_REORDERS:
+        raise ValueError(f"unknown beam reorder mode {reorder!r}")
+    sk, sv = cache
+    B, P = prompt.shape
+    K = beam_size
+    top_lp, top_tok = _top_k(logp0, K)
+    tokens = torch.full((B, K, total), eot, dtype=torch.long,
+                        device=prompt.device)
+    tokens[:, :, :P] = prompt[:, None, :]
+    tokens[:, :, P] = top_tok
+    mask = None
+    if reorder == "lazy":
+        L, _, H, C, hd = sk.shape
+        lazy = []
+        for c in (sk, sv):
+            t = c.new_zeros((L, B, H, K, C, hd))
+            t[:, :, :, 0] = c
+            lazy.append(t)
+        cache = tuple(lazy)
+        mask = torch.zeros((B, K, K, C), dtype=torch.bool, device=sk.device)
+        mask[:, :, 0, :P] = True
+    else:
+        cache = (sk.repeat_interleave(K, dim=1),
+                 sv.repeat_interleave(K, dim=1))
+    return BeamState(tokens, top_lp, top_tok == eot, P, cache, mask,
+                     reorder, eot)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """f32 matmuls without TF32 inside, whatever the global switch says."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def _onehot_reorder(cache, idx: torch.Tensor):
+    """The JAX package's 0/1 one-hot matmul reorder, layer by layer (each
+    (N, H·C·hd) layer slab is a view, so no transposed copy of the cache
+    is made). Exact: each output is one product 1·x plus products 0·y."""
+    N = idx.shape[0]
+    onehot = F.one_hot(idx, N).to(cache[0].dtype)
+    out = []
+    with _full_f32_matmul():
+        for c in cache:
+            o = torch.empty_like(c)
+            for layer in range(c.shape[0]):
+                torch.matmul(onehot, c[layer].reshape(N, -1),
+                             out=o[layer].reshape(N, -1))
+            out.append(o)
+    return tuple(out)
+
+
+def beam_step(params: Params, dims: WhisperDims, cross_kv,
+              state: BeamState, dtype: torch.dtype = torch.bfloat16,
+              decoder_q8: Params | None = None) -> torch.Tensor:
+    """One iteration of the beam loop, advancing ``state`` in place: a
+    :func:`decoder_step` over the B·K beams at ``state.pos``; finished
+    beams extend only with EOT at no cost; the K best of the K·V
+    candidates of each row survive; the hypotheses, flags and caches
+    follow their source beams ("kernel": ``kernels.beam_reorder_kv``;
+    "onehot": :func:`_onehot_reorder`; "lazy": the ancestry mask's beam
+    axis, the caches stay). Returns the step's logits (B·K, vocab) f32."""
+    B, K, total = state.tokens.shape
+    V = dims.n_vocab
+    i = state.pos
+    device = state.tokens.device
+    flat = state.tokens.reshape(B * K, total)
+    lazy = state.reorder == "lazy"
+    if lazy:  # each beam's new position lands in its own birth row
+        ar = torch.arange(K, device=device)
+        state.mask[:, ar, ar, i] = True
+    logits, cache = decoder_step(
+        params, dims, flat[:, i:i + 1], cross_kv, i, state.cache,
+        dtype=dtype, q8=decoder_q8, beams=K,
+        beam_mask=state.mask if lazy else None)
+    logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+    eot_only = torch.full((V,), float("-inf"), device=device)
+    eot_only[state.eot] = 0.0
+    logp = torch.where(state.finished[..., None], eot_only, logp)
+    cand = state.sum_lp[..., None] + logp
+    new_lp, flat_idx = _top_k(cand.reshape(B, K * V), K)
+    src = flat_idx // V
+    new_tok = flat_idx % V
+    gather = (torch.arange(B, device=device)[:, None] * K + src).reshape(-1)
+    tokens = flat[gather].reshape(B, K, total)
+    tokens[:, :, i + 1] = new_tok
+    if lazy:
+        state.mask = state.mask[torch.arange(B, device=device)[:, None], src]
+    elif state.reorder == "kernel":
+        state.cache = kernels.beam_reorder_kv(*cache, gather)
+    else:
+        state.cache = _onehot_reorder(cache, gather)
+    state.finished = (state.finished.reshape(-1)[gather].reshape(B, K)
+                      | (new_tok == state.eot))
+    state.tokens, state.sum_lp, state.pos = tokens, new_lp, i + 1
+    return logits
+
+
+def beam_best(state: BeamState, prompt_len: int,
+              length_penalty: float = 1.0) -> torch.Tensor:
+    """The hypothesis of each row with the best length-normalised summed
+    log-probability, (B, total), EOT-padded."""
+    tokens = state.tokens
+    lengths = (tokens != state.eot).float().sum(-1) - prompt_len + 1.0
+    score = state.sum_lp / torch.clamp(lengths, min=1.0) ** length_penalty
+    best = torch.argmax(score, dim=-1)
+    return tokens[torch.arange(tokens.shape[0], device=tokens.device), best]
+
+
+@torch.inference_mode()
+def beam_decode(
+    params: Params,
+    dims: WhisperDims,
+    enc: torch.Tensor,  # (B, Ta, d)
+    prompt: torch.Tensor,  # (B, P) int
+    max_new_tokens: int,
+    eot: int,
+    beam_size: int = 5,
+    length_penalty: float = 1.0,
+    dtype: torch.dtype = torch.bfloat16,
+    decoder_q8: Params | None = None,
+    cross_kv_quantize: bool = False,
+    cross_kv_bits: int = 8,
+    reorder: str | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Beam search over B windows with K = ``beam_size`` hypotheses each,
+    as the JAX package's ``beam_decode``: the cross K/V is computed for
+    the B windows only and the K beams of a window ride the query axis of
+    its cross-attention; the prompt primes B rows (:func:`prime_decode`);
+    the loop (:func:`beam_step`) runs until every hypothesis has finished or
+    the buffer is full. ``reorder`` (default: the ``BEAM_REORDER``
+    environment variable, else "lazy") picks the reorder of the self
+    caches, see :data:`BEAM_REORDERS` and :class:`BeamState`: the three
+    give the same tokens, "kernel" and "onehot" the same bits. Caches are
+    updated in place. Returns (the best hypothesis per window (B,
+    P+max_new), EOT-padded; the loop iterations run)."""
+    mode = reorder or os.environ.get("BEAM_REORDER", "lazy")
+    P = prompt.shape[1]
+    total = P + max_new_tokens
+    cross_kv, cache, logp0 = prime_decode(
+        params, dims, enc, prompt, min(dims.n_text_ctx, total), dtype,
+        decoder_q8, cross_kv_quantize, cross_kv_bits)
+    state = beam_start(cache, logp0, prompt, total, beam_size, eot, mode)
+    del cache
+    while not state.done:
+        beam_step(params, dims, cross_kv, state, dtype, decoder_q8)
+    return beam_best(state, P, length_penalty), state.pos - P

@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels, their wrappers and plain versions.
 
-Six TPU kernels of ``audio_rag_tpu/ops/pallas_kernels.py`` lie on the
-ported paths; each is a CUDA C++ kernel for ``sm_90a`` in
+The seven TPU kernels of ``audio_rag_tpu/ops/pallas_kernels.py`` lie on
+the ported paths; each is a CUDA C++ kernel for ``sm_90a`` in
 ``audio_rag_tpu_torch/csrc/`` (:data:`KERNELS` names its source and the
 TPU kernel it replaces):
 
@@ -16,7 +16,10 @@ TPU kernel it replaces):
   ``models.whisper._cross_with_kv``);
 * :func:`decode_self_attention_q8` ← ``decode_self_attention_q8`` (the
   greedy loop's self-attention over an int8 self cache, through
-  ``models.whisper.decoder_step``).
+  ``models.whisper.decoder_step``);
+* :func:`beam_reorder_kv` ← ``beam_reorder_kv`` (beam search's per-step
+  reorder of the self caches, through ``models.whisper.beam_step`` with
+  ``reorder="kernel"``).
 
 The sources are compiled with ``nvcc`` at first use into ``build/kernels/``
 at the repository root (one shared library per source, named by a hash of
@@ -60,6 +63,8 @@ __all__ = [
     "decode_cross_attention_q4_plain",
     "decode_self_attention_q8",
     "decode_self_attention_q8_plain",
+    "beam_reorder_kv",
+    "beam_reorder_kv_plain",
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -81,6 +86,7 @@ KERNELS: dict[str, Kernel] = {
     "decode_cross_attention_q4": Kernel("decode_cross_q4.cu", f"{_PK}:178"),
     "matmul_q4w": Kernel("matmul_q4w.cu", f"{_PK}:481"),
     "decode_self_attention_q8": Kernel("decode_self_q8.cu", f"{_PK}:282"),
+    "beam_reorder_kv": Kernel("beam_reorder.cu", f"{_PK}:572"),
 }
 
 #: launches per kernel since the last :func:`reset_launches`
@@ -175,6 +181,9 @@ _ARGTYPES = {
     "decode_self_attention_q8": ("decode_self_q8_launch",
                                  [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                   _I, _F, _I, _I, _VP]),
+    "beam_reorder_kv": ("beam_reorder_launch",
+                        [_VP, _VP, _VP, _VP, _VP, _I, _I, ctypes.c_longlong,
+                         _VP]),
 }
 
 
@@ -575,3 +584,44 @@ def decode_self_attention_q8(q: torch.Tensor, k8: torch.Tensor,
                       _stream(q))
     _launched(name, rc)
     return out
+
+
+# -- beam-search reorder of the self caches -----------------------------------
+
+def beam_reorder_kv_plain(sk: torch.Tensor, sv: torch.Tensor,
+                          idx: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sk[:, idx]``, ``sv[:, idx]``: the function of the TPU kernel."""
+    return sk[:, idx], sv[:, idx]
+
+
+def beam_reorder_kv(sk: torch.Tensor, sv: torch.Tensor, idx: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """out[:, n] = in[:, idx[n]] on both (L, N, H, C, hd) self caches, N =
+    B·K beam rows; ``idx`` (N,) int64, repeats allowed. Returns new
+    tensors (the inputs are left as they are). The CUDA kernel copies bits
+    and takes any shape of a contiguous f32 or bf16 cache; an index
+    outside [0, N) raises on CPU tensors and is not checked on CUDA ones
+    (that would cost a host sync): such a row is left unwritten."""
+    name = "beam_reorder_kv"
+    _check(sk.dim() == 5 and sv.shape == sk.shape and idx.dim() == 1
+           and idx.shape[0] == sk.shape[1], name,
+           f"need sk/sv (L, N, H, C, hd) and idx (N,), got {tuple(sk.shape)}, "
+           f"{tuple(sv.shape)}, {tuple(idx.shape)}")
+    _check(idx.dtype == torch.int64, name, f"need int64 idx, got {idx.dtype}")
+    _check(sk.dtype in _DTYPE_CODE and sv.dtype == sk.dtype, name,
+           f"need f32 or bf16 caches of one dtype, got {sk.dtype}, "
+           f"{sv.dtype}")
+    L, N = sk.shape[:2]
+    if not _route(name, sk, sv, idx):
+        _check(int(idx.min()) >= 0 and int(idx.max()) < N, name,
+               f"index outside [0, {N})")
+        return beam_reorder_kv_plain(sk, sv, idx)
+    _check(all(t.is_contiguous() for t in (sk, sv, idx)), name,
+           "sk, sv and idx must be contiguous")
+    ko, vo = torch.empty_like(sk), torch.empty_like(sv)
+    slab = sk[0, 0].numel() * sk.element_size()
+    rc = _entry(name)(sk.data_ptr(), sv.data_ptr(), idx.data_ptr(),
+                      ko.data_ptr(), vo.data_ptr(), L, N, slab, _stream(sk))
+    _launched(name, rc)
+    return ko, vo

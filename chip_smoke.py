@@ -9,16 +9,21 @@ It exits non-zero without a CUDA device, and imports nothing of JAX or of
 the JAX package. Phases (any failure exits non-zero; ``--phases`` picks a
 subset):
 
-1. build    — nvcc-builds the port's six kernels (one process per source,
-              all started together) and prints the seconds it took;
+1. build    — nvcc-builds the port's seven kernels (one process per
+              source, all started together) and prints the seconds it took;
 2. kernels  — holds each kernel against its plain PyTorch version on the
               card at small ragged shapes and at the Whisper large-v3
-              shapes, printing the error, tolerance, kernel / plain /
-              library ms and bound;
+              shapes (beam search's too: cross-attention with 5 and 8
+              queries per row, the weight matmuls at 80 rows, the cache
+              reorder bit for bit at (32, 80, 20, 228, 64) and at the
+              beam-outermost probe's (1, 40, 1, 72960, 128)), printing the
+              error, tolerance, kernel / plain / library ms and bound;
 3. spine    — ingests three spoken turns (tiny-synth ASR + eval-small
               embedder, committed trained weights) through ``AudioRAG`` in
-              three decode profiles: int8 (cross_kv_int8 + decoder_int8) and
-              int8 + int4 weights + int8 self cache, where hybrid queries
+              five decode profiles: int8 (cross_kv_int8 + decoder_int8),
+              int8 + int4 weights + int8 self cache, beam 5 with the kernel
+              reorder and speculative greedy in verify blocks of 8 (whose
+              transcripts must be the int8 profile's), where hybrid queries
               must retrieve the chunk with the spoken words, and the repo's
               benchmark profile (cross_kv_int4 + decoder_int8 +
               lm_head_int4), whose top hits and chunk count must equal the
@@ -37,7 +42,15 @@ subset):
 6. capacity — large-v3 shapes in the capacity profile (cross_kv_int4 +
               decoder_int4 + self_kv_int8, window batch 16): first-step
               logits and 8 decode steps against the plain path on the card,
-              and a traced window of decode steps (no ingest).
+              and a traced window of decode steps (no ingest);
+7. beam     — large-v3 shapes, beam 5 in the benchmark profile at window
+              batch 16: from one window primed at the full decode budget
+              (C = 228), 8 beam steps in each reorder mode ("kernel" must
+              equal "onehot" bit for bit, its logits stay within 5 % of the
+              plain path's; lazy's agreement is printed), a traced window
+              of beam steps and the peak memory of each mode, then 16
+              windows through ``AudioRAG.ingest``/``query`` with
+              ``BEAM_REORDER=kernel``.
 
 Each path resets the launch counters before it runs, reads them after, and
 fails unless every kernel it runs was launched. TF32 is switched off for
@@ -53,6 +66,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -74,7 +88,7 @@ SPINE_QUERIES = [("gradient descent loss", ("gradient", "descent")),
 
 FLASH, Q8W, Q4W = "flash_attention", "matmul_q8w", "matmul_q4w"
 CROSS8, CROSS4 = "decode_cross_attention_q8", "decode_cross_attention_q4"
-SELF8 = "decode_self_attention_q8"
+SELF8, REORDER = "decode_self_attention_q8", "beam_reorder_kv"
 
 #: decode profile → (ASRConfig switches, the kernels its decode path runs)
 PROFILES = {
@@ -86,7 +100,18 @@ PROFILES = {
                       "lm_head_int4": True}, {FLASH, Q8W, Q4W, CROSS4}),
     "kv4+dec4+skv8": ({"cross_kv_int4": True, "decoder_int4": True,
                        "self_kv_int8": True}, {FLASH, Q4W, SELF8, CROSS4}),
+    # beam search runs with BEAM_REORDER=kernel here (see run_with_reorder)
+    "beam5+int8": ({"cross_kv_int8": True, "decoder_int8": True,
+                    "decode": "beam", "beam_size": 5},
+                   {FLASH, Q8W, CROSS8, REORDER}),
+    "spec8+int8": ({"cross_kv_int8": True, "decoder_int8": True,
+                    "speculative_k": 8}, {FLASH, Q8W, CROSS8}),
+    "beam5+kv4+int8+lm4": ({"cross_kv_int4": True, "decoder_int8": True,
+                            "lm_head_int4": True, "decode": "beam",
+                            "beam_size": 5},
+                           {FLASH, Q8W, Q4W, CROSS4, REORDER}),
 }
+BEAM, BEAM_WB = 5, 16  # the beam phase: beam size, window batch
 
 # the logits head pads the vocab to a multiple of 128 (51866 → 51968)
 LARGE_V3_Q8W = [  # (din, dout, calls per decode step)
@@ -242,7 +267,10 @@ def _cross_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
         row["plain_ms"] = time_ms(
             torch, lambda: K.decode_cross_attention_q8_plain(q, k8, v8, ks, vs),
             flush=flush)
-        row["library_ms"] = None
+        # the library yardstick: SDPA on dequantized bf16 K/V
+        kd = (k8.float() * ks).transpose(-1, -2).bfloat16()
+        vd = (v8.float() * vs).transpose(-1, -2).bfloat16()
+        row["library_ms"] = _sdpa_ms(torch, q, kd, vd, flush)
         row["bound_ms"], row["bound_by"] = bound_ms(
             B * H * M * hd * q.element_size() + 2 * B * H * hd * Ta
             + 8 * B * H + 4 * B * H * M * hd, 4 * B * H * M * hd * Ta,
@@ -311,7 +339,11 @@ def _cross4_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
             torch, lambda: K.decode_cross_attention_q4_plain(q, k4, v4, ks,
                                                              vs),
             flush=flush)
-        row["library_ms"] = None
+        # the library yardstick: SDPA on dequantized bf16 K/V
+        kd, vd = ((torch.cat(K.int4_nibbles(x), dim=-2).float()
+                   .transpose(-1, -2) * sc).bfloat16()
+                  for x, sc in ((k4, ks), (v4, vs)))
+        row["library_ms"] = _sdpa_ms(torch, q, kd, vd, flush)
         row["bound_ms"], row["bound_by"] = bound_ms(
             B * H * M * hd * q.element_size() + B * H * hd * Ta
             + 8 * B * H * hd + 4 * B * H * M * hd, 4 * B * H * M * hd * Ta,
@@ -360,6 +392,74 @@ def _self8_case(torch, K, B, H, M, hd, Cp, n_valid, qdtype, flush, timed):
             B * H * M * hd * q.element_size() + 2 * B * H * hd * Cp
             + 4 * B * Cp * 128 + 4 * B * H * M * hd,
             4 * B * H * M * hd * Cp, "bf16")
+    return row, ok
+
+
+def _sdpa_ms(torch, q, kd, vd, flush) -> float:
+    """ms of one ``scaled_dot_product_attention`` call with bf16 q over
+    dequantized bf16 K/V (B, H, T, hd): the library call of the cross
+    kernels' function."""
+    qb = q.bfloat16()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(torch, lambda: sdpa(qb, kd, vd), flush=flush)
+
+
+def _same_bits(torch, a, b) -> bool:
+    ints = {2: torch.int16, 4: torch.int32}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.element_size()]),
+                            b.view(ints[b.element_size()])))
+
+
+def _reorder_case(torch, K, shape, dtype, index, flush, timed):
+    """beam_reorder_kv against its plain version, bit for bit. ``index``:
+    "beams" (each group of 5 rows draws its sources from its own group,
+    repeats allowed), "perm" (a permutation within each group: every
+    source read once), "identity" or "fanout" (every row from row 1).
+    The bound counts the bytes this index needs: every destination row
+    written once, every distinct source row read once."""
+    L, N = shape[:2]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    sk, sv = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    grp = torch.arange(N, device="cuda") // BEAM
+    if index == "identity":
+        idx = torch.arange(N, device="cuda")
+    elif index == "fanout":
+        idx = torch.ones(N, dtype=torch.long, device="cuda")
+    elif index == "perm":
+        idx = torch.argsort(grp + torch.rand(N, generator=g, device="cuda"))
+    else:
+        idx = torch.clamp(grp * BEAM + torch.randint(
+            0, BEAM, (N,), generator=g, device="cuda"), max=N - 1)
+    got = K.beam_reorder_kv(sk, sv, idx)
+    ref = K.beam_reorder_kv_plain(sk, sv, idx)
+    ok = all(_same_bits(torch, a, b) for a, b in zip(got, ref))
+    row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "index": index, "max_abs_err": max(
+               (a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, ref)), "tol": "bit-exact"}
+    del got, ref
+    if timed:
+        row["ms"] = time_ms(torch, lambda: K.beam_reorder_kv(sk, sv, idx),
+                            iters=10, flush=flush)
+        row["plain_ms"] = time_ms(
+            torch, lambda: K.beam_reorder_kv_plain(sk, sv, idx), iters=10,
+            flush=flush)
+        row["library_ms"] = time_ms(  # two index_select calls
+            torch, lambda: (torch.index_select(sk, 1, idx),
+                            torch.index_select(sv, 1, idx)),
+            iters=10, flush=flush)
+        onehot = torch.nn.functional.one_hot(idx, N).to(dtype)
+        row["onehot_einsum_ms"] = time_ms(
+            torch, lambda: (torch.einsum("nb,lbhcd->lnhcd", onehot, sk),
+                            torch.einsum("nb,lbhcd->lnhcd", onehot, sv)),
+            iters=5, flush=flush)
+        sources = idx.unique().numel()
+        slab = sk[0, 0].numel() * sk.element_size()
+        row["distinct_sources"] = sources
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * L * slab * (N + sources) + 8 * N, 0, "bf16")
     return row, ok
 
 
@@ -432,6 +532,44 @@ def phase_kernels(torch, K) -> dict:
             torch, K, 1, 4, 1, 32, 128, 0, f32, flush, t), False),
         ("decode_self_attention_q8", lambda t: _self8_case(
             torch, K, 16, 20, 1, 64, 256, 40, bf16, flush, t), True),
+        # the beam phase's decode step: K = 5 beams of 16 windows
+        ("decode_cross_attention_q8@beam", lambda t: _cross_case(
+            torch, K, 16, 20, BEAM, 64, 1500, bf16, flush, t), True),
+        ("decode_cross_attention_q4@beam", lambda t: _cross4_case(
+            torch, K, 16, 20, BEAM, 64, 1500, bf16, flush, t), True),
+        ("decode_cross_attention_q8", lambda t: _cross_case(  # a verify
+            torch, K, 16, 20, 8, 64, 1500, bf16, flush, t), False),  # block
+        ("decode_cross_attention_q4", lambda t: _cross4_case(
+            torch, K, 16, 20, 8, 64, 1500, bf16, flush, t), False),
+        *[("matmul_q8w@beam", (lambda din, dout: lambda t: _q8w_case(
+            torch, K, BEAM * BEAM_WB, din, dout, bf16, flush, t))(din, dout),
+            True) for din, dout, _ in LARGE_V3_Q8W[:3]],
+        ("matmul_q4w@beam", lambda t: _q4w_case(
+            torch, K, BEAM * BEAM_WB, 1280, 51968, 80, bf16, flush, t),
+            True),
+        (REORDER, lambda t: _reorder_case(
+            torch, K, (2, 6, 2, 4, 16), f32, "beams", flush, t), False),
+        (REORDER, lambda t: _reorder_case(   # ragged slab: the byte path
+            torch, K, (3, 10, 3, 7, 5), bf16, "beams", flush, t), False),
+        (REORDER, lambda t: _reorder_case(
+            torch, K, (3, 10, 3, 7, 5), bf16, "identity", flush, t), False),
+        (REORDER, lambda t: _reorder_case(
+            torch, K, (2, 12, 4, 9, 64), f32, "fanout", flush, t), False),
+        # the beam-outermost layout probe of scripts/bench_beam_reorder.py
+        (REORDER + "@probe", lambda t: _reorder_case(
+            torch, K, (1, 40, 1, 72960, 128), bf16, "beams", flush, t),
+            True),
+        (REORDER + "@probe-perm", lambda t: _reorder_case(
+            torch, K, (1, 40, 1, 72960, 128), bf16, "perm", flush, t),
+            True),
+        # the main path: large-v3, window batch 16 x beam 5, C = 228; a
+        # beam step's index repeats sources, a permutation reads each once
+        (REORDER, lambda t: _reorder_case(
+            torch, K, (32, BEAM * BEAM_WB, 20, 228, 64), bf16, "beams",
+            flush, t), True),
+        (REORDER + "@perm", lambda t: _reorder_case(
+            torch, K, (32, BEAM * BEAM_WB, 20, 228, 64), bf16, "perm",
+            flush, t), True),
     ]
     large: dict[str, list[dict]] = {}
     for name, case, timed in cases:
@@ -465,6 +603,24 @@ def phase_kernels(torch, K) -> dict:
             agg(large["matmul_q8w@32"], [c for _, _, c in LARGE_V3_Q8W[:3]]),
         "matmul_q4w at B=16, the capacity profile's 257 calls":
             agg(large["matmul_q4w@16"], [c for _, _, c, _ in LARGE_V3_Q4W]),
+        "matmul_q8w at B=80, the beam phase's 256 int8 block calls":
+            agg(large["matmul_q8w@beam"], [c for _, _, c in LARGE_V3_Q8W[:3]]),
+        "matmul_q4w at B=80, the beam phase's int4 head":
+            agg(large["matmul_q4w@beam"], [1]),
+        "decode_cross_attention_q8 at (16, 20, 5, 64), Ta 1500, per call":
+            agg(large["decode_cross_attention_q8@beam"], [1]),
+        "decode_cross_attention_q4 at (16, 20, 5, 64), Ta 1500, per call":
+            agg(large["decode_cross_attention_q4@beam"], [1]),
+        **{f"beam_reorder_kv at {at}, {how}": {
+            **agg(large[REORDER + key], [1]),
+            **{k: large[REORDER + key][0][k]
+               for k in ("onehot_einsum_ms", "distinct_sources")}}
+           for key, at, how in (
+               ("@probe", "the probe's (1, 40, 1, 72960, 128) bf16",
+                "a beam index"),
+               ("@probe-perm", "the probe's (1, 40, 1, 72960, 128) bf16",
+                "a permutation"),
+               ("@perm", "(32, 80, 20, 228, 64) bf16", "a permutation"))},
     }), flush=True)
     return {
         FLASH: {**agg(large[FLASH], [1]),
@@ -485,6 +641,12 @@ def phase_kernels(torch, K) -> dict:
         SELF8: {**agg(large[SELF8], [1]),
                 "per": "call at (16, 20, 1, 64), Cp=256 (one layer, one "
                        "step of the capacity profile)"},
+        REORDER: {**agg(large[REORDER], [1]),
+                  "onehot_einsum_ms": large[REORDER][0]["onehot_einsum_ms"],
+                  "distinct_sources": large[REORDER][0]["distinct_sources"],
+                  "per": "call at (32, 80, 20, 228, 64) bf16 (both self "
+                         "caches, one beam step, window batch 16 x beam 5, "
+                         "C = 228, a beam index)"},
     }
 
 
@@ -530,6 +692,24 @@ def spine_config(device: str, profile: str):
         device=device)
 
 
+@contextlib.contextmanager
+def run_with_reorder(profile: str):
+    """Beam profiles run with ``BEAM_REORDER=kernel`` (the reorder of the
+    self caches through the kernel), restored afterwards."""
+    if PROFILES[profile][0].get("decode") != "beam":
+        yield
+        return
+    saved = os.environ.get("BEAM_REORDER")
+    os.environ["BEAM_REORDER"] = "kernel"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("BEAM_REORDER", None)
+        else:
+            os.environ["BEAM_REORDER"] = saved
+
+
 def run_spine(device: str, profile: str, workdir: Path) -> dict:
     """Ingest the three turns and run both queries; returns what it saw."""
     import numpy as np
@@ -546,9 +726,11 @@ def run_spine(device: str, profile: str, workdir: Path) -> dict:
     rag.asr  # load the models outside the timed ingest
     rag.embedder
     t0 = time.perf_counter()
-    res = rag.ingest(str(wav_path), collection="spine")
+    with run_with_reorder(profile):
+        res = rag.ingest(str(wav_path), collection="spine")
     ingest_s = time.perf_counter() - t0
     out = {"chunks": res.num_chunks, "ingest_ms": ingest_s * 1e3,
+           "decode_steps": rag.asr.timings["decode_steps"],
            "transcripts": [c["text"] for c in
                            rag.store._collections["spine"].payloads],
            "queries": []}
@@ -571,19 +753,25 @@ def check_launches(path: str, launches: dict, expect: set) -> None:
              f"(launches {launches})")
 
 
+SPINE_PROFILES = ("int8", "int8+dec4+skv8", "kv4+int8+lm4", "beam5+int8",
+                  "spec8+int8")
+
+
 def phase_spine(torch, K, workdir: Path) -> dict:
-    """The spine in three decode profiles; returns launches by path."""
-    by_path = {}
-    for profile in ("int8", "int8+dec4+skv8", "kv4+int8+lm4"):
+    """The spine in five decode profiles; returns launches by path."""
+    by_path, transcripts = {}, {}
+    for profile in SPINE_PROFILES:
         K.reset_launches()
         out = run_spine("cuda", profile, workdir)
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         tag = f"spine[{profile}]"
+        transcripts[profile] = out["transcripts"]
         print(f"{tag} transcripts (chunk texts):",
               json.dumps(out["transcripts"]))
         print(f"{tag} chunks {out['chunks']} ingest_ms "
-              f"{out['ingest_ms']:.1f}")
+              f"{out['ingest_ms']:.1f} decode loop iterations "
+              f"{out['decode_steps']}")
         for q in out["queries"]:
             print(f"{tag} query {q['query']!r} ms {q['ms']:.1f} "
                   f"top {json.dumps(q['top'])} spoken words in the top "
@@ -607,6 +795,9 @@ def phase_spine(torch, K, workdir: Path) -> dict:
                      "run of the same profile")
         elif not all(q["ok"] for q in out["queries"]):
             fail(f"{tag}: a query's top hit lacks its spoken words")
+        if profile == "spec8+int8" and out["transcripts"] != transcripts[
+                "int8"]:
+            fail(f"{tag}: speculative transcripts differ from greedy's")
         check_launches(tag, launches, PROFILES[profile][1])
         by_path[tag] = launches
     return by_path
@@ -728,30 +919,19 @@ def check_logits(tag: str, got: list, ref: list) -> None:
             fail(f"{tag}: {what} logits disagree with the plain path")
 
 
-def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
-    """``steps`` greedy decode steps timed on the host clock, then ``steps``
+def trace_steps(torch, step, steps: int = 8, top: int = 6) -> dict:
+    """``steps`` calls of ``step`` timed on the host clock, then ``steps``
     more under torch.profiler: device kernel time per step, the device's
     busy share of the traced window, and the kernels that take the most
     device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from audio_rag_tpu_torch.models.whisper import decoder_step
-
-    tok = logits.argmax(-1, keepdim=True)
-    pos, cache = state["pos"], state["cache"]
-
     def run() -> float:
-        nonlocal tok, pos, cache
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            out, cache = decoder_step(
-                asr._params, asr.dims, tok, state["ckv"], pos, cache,
-                dtype=asr.dtype, q8=asr._params_q8,
-                self_kv_int8=asr.config.self_kv_int8)
-            tok = out.argmax(-1, keepdim=True)
-            pos += 1
+            step()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -766,7 +946,7 @@ def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"steps": steps, "decode_ms_per_step": host_ms / steps,
             "traced_host_ms_per_step": traced_ms / steps,
             "device_busy_ms_per_step": (busy_ms / steps if kernels
@@ -775,7 +955,26 @@ def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
                                          else None),
             "kernel_launches_per_step": len(kernels) / steps,
             "top_kernels_ms_per_step": {name[:60]: ms / steps
-                                        for name, ms in top}}
+                                        for name, ms in ranked}}
+
+
+def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
+    """A traced window of greedy decode steps (:func:`trace_steps`)."""
+    from audio_rag_tpu_torch.models.whisper import decoder_step
+
+    tok = logits.argmax(-1, keepdim=True)
+    pos, cache = state["pos"], state["cache"]
+
+    def step():
+        nonlocal tok, pos, cache
+        out, cache = decoder_step(
+            asr._params, asr.dims, tok, state["ckv"], pos, cache,
+            dtype=asr.dtype, q8=asr._params_q8,
+            self_kv_int8=asr.config.self_kv_int8)
+        tok = out.argmax(-1, keepdim=True)
+        pos += 1
+
+    return trace_steps(torch, step, steps)
 
 
 def free_card(torch) -> None:
@@ -788,11 +987,9 @@ def phase_full(torch, K, tag: str, profile: str, window_batch: int,
                n_windows: int) -> dict:
     """Large-v3 shapes through ``AudioRAG.ingest``/``query`` on
     ``n_windows`` windows of speech; returns the ingest's launches."""
-    from audio_rag_tpu_torch.audio.charvoice import SR
     from audio_rag_tpu_torch.pipeline import AudioRAG
 
-    seconds = n_windows * 30.0
-    wav = long_speech(seconds)
+    wav = long_speech(n_windows * 30.0)
     rag = AudioRAG(large_v3_config("cuda", profile, window_batch))
     t0 = time.perf_counter()
     asr = rag.asr
@@ -812,11 +1009,25 @@ def phase_full(torch, K, tag: str, profile: str, window_batch: int,
         profile_decode(torch, asr, got[0], state)), flush=True)
     del state, got
     free_card(torch)
+    return ingest_run(torch, K, tag, rag, profile, wav, n_windows)
 
+
+def ingest_run(torch, K, tag: str, rag, profile: str, wav,
+               n_windows: int) -> dict:
+    """The main path's run: ingest ``wav`` and query it through ``rag``
+    with the launch counters reset just before and read just after;
+    prints RTF, encode and decode times, loop iterations, peak memory and
+    launches, and fails unless every kernel of the profile launched.
+    Returns the launches."""
+    from audio_rag_tpu_torch.audio.charvoice import SR
+
+    seconds = len(wav) / SR
+    asr = rag.asr
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
-    res = rag.ingest(wav, sample_rate=SR, collection="full")
+    with run_with_reorder(profile):
+        res = rag.ingest(wav, sample_rate=SR, collection="full")
     hits = rag.query("gradient descent", top_k=3, collection="full").results
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -824,10 +1035,10 @@ def phase_full(torch, K, tag: str, profile: str, window_batch: int,
     tm = asr.timings
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     out = {
-        "profile": profile, "window_batch": window_batch,
+        "profile": profile, "window_batch": asr.config.window_batch_size,
         "windows": tm["windows"], "batches": tm["batches"],
         "encode_ms_per_batch": tm["encode_s"] / tm["batches"] * 1e3,
-        # cross K/V precompute, 4 prompt steps and the greedy loop's steps
+        # cross K/V precompute, 4 prompt steps and the decode loop
         "decode_ms": tm["decode_s"] * 1e3,
         "decode_loop_steps": tm["decode_steps"],
         "mel_ms": tm["mel_s"] * 1e3,
@@ -883,12 +1094,138 @@ def phase_capacity(torch, K) -> dict:
     return launches
 
 
+def prime_window(torch, asr, wav, cache_len: int):
+    """Encode the first window batch and prime its B rows with the prompt
+    as the ASR's decode profile does (``prime_decode``). Returns (cross
+    K/V, primed (sk, sv), log-probabilities after the prompt, prompt)."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.models.whisper import encode, prime_decode
+    from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, log_mel_batch
+
+    dims, st = asr.dims, asr.tokens
+    n = 2 * dims.n_audio_ctx * HOP_LENGTH
+    B = asr.config.window_batch_size
+    win = torch.from_numpy(np.ascontiguousarray(
+        wav[: B * n].reshape(B, n))).to(asr.device)
+    prompt = torch.tensor([[st.sot, st.lang_base, st.transcribe,
+                            st.no_timestamps]] * B, device=asr.device)
+    with torch.inference_mode():
+        enc = encode(asr._params, dims,
+                     log_mel_batch(win, n_mels=dims.n_mels), dtype=asr.dtype)
+        ckv, cache, logp0 = prime_decode(
+            asr._params, dims, enc, prompt, cache_len, asr.dtype,
+            asr._params_q8, True, asr.cross_kv_bits)
+    return ckv, cache, logp0, prompt
+
+
+def check_beam_modes(torch, K, asr, primed, total: int,
+                     steps: int = 8) -> None:
+    """From one primed state, ``steps`` beam steps in each reorder mode:
+    "kernel"'s tokens, scores and self caches must equal "onehot"'s bit for
+    bit after every step; "kernel"'s logits must stay within 5 % of the
+    plain-kernel path's on the same cache and tokens; lazy's token
+    agreement and logit difference are printed."""
+    from audio_rag_tpu_torch.models.whisper import (
+        beam_start, beam_step, decoder_step)
+
+    ckv, cache, logp0, prompt = primed
+    tag, eot = "beam[C=228]", asr.tokens.eot
+    states = {m: beam_start(cache, logp0, prompt, total, BEAM, eot, m)
+              for m in ("kernel", "onehot", "lazy")}
+    got, ref, rows = [], [], []
+    with torch.inference_mode():
+        for i in range(steps):
+            st = states["kernel"]
+            tok = st.tokens.reshape(-1, total)[:, st.pos:st.pos + 1].clone()
+            pos, before = st.pos, tuple(c.clone() for c in st.cache)
+            logits = {m: beam_step(asr._params, asr.dims, ckv, s, asr.dtype,
+                                   asr._params_q8)
+                      for m, s in states.items()}
+            with plain_kernels(K):
+                plain = decoder_step(asr._params, asr.dims, tok, ckv, pos,
+                                     before, dtype=asr.dtype,
+                                     q8=asr._params_q8, beams=BEAM)[0]
+            del before
+            got.append(logits["kernel"].float())
+            ref.append(plain.float())
+            kern, one, lazy = (states[m] for m in ("kernel", "onehot",
+                                                   "lazy"))
+            same = (torch.equal(kern.tokens, one.tokens)
+                    and _same_bits(torch, kern.sum_lp, one.sum_lp)
+                    and torch.equal(kern.finished, one.finished)
+                    and all(_same_bits(torch, a, b)
+                            for a, b in zip(kern.cache, one.cache)))
+            rows.append({
+                "step": i, "kernel_equals_onehot_bits": same,
+                "lazy_token_agreement": (kern.tokens == lazy.tokens)
+                .float().mean().item(),
+                "lazy_max_abs_logit_diff": (logits["lazy"] - logits["kernel"])
+                .abs().max().item()})
+            print(tag, json.dumps(rows[-1]), flush=True)
+            if not same:
+                fail(f"{tag}: the kernel reorder differs from the one-hot "
+                     f"reorder at step {i}")
+    check_logits(tag, got, ref)
+
+
+def profile_beam(torch, asr, primed, total: int, mode: str,
+                 steps: int = 8) -> dict:
+    """A traced window of beam steps in one reorder mode at C = 228, with
+    the peak device memory of the mode's run."""
+    from audio_rag_tpu_torch.models.whisper import beam_start, beam_step
+
+    ckv, cache, logp0, prompt = primed
+    free_card(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = beam_start(cache, logp0, prompt, total, BEAM, asr.tokens.eot,
+                       mode)
+    out = trace_steps(torch, lambda: beam_step(
+        asr._params, asr.dims, ckv, state, asr.dtype, asr._params_q8),
+        steps, top=8)
+    out["reorder"] = mode
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_above_primed_gb"] = (torch.cuda.max_memory_allocated()
+                                   - base) / 1e9
+    return out
+
+
+def phase_beam(torch, K) -> dict:
+    """Large-v3 shapes, beam 5 in the benchmark profile at window batch 16:
+    a window at the full decode budget (C = 228) checked in the three
+    reorder modes and traced in each, then the main path through
+    ``AudioRAG.ingest``/``query`` with ``BEAM_REORDER=kernel``. Returns the
+    ingest's launches."""
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+
+    profile, tag = "beam5+kv4+int8+lm4", "beam"
+    wav = long_speech(BEAM_WB * 30.0, seed=7)
+    rag = AudioRAG(large_v3_config("cuda", profile, BEAM_WB))
+    t0 = time.perf_counter()
+    asr = rag.asr
+    rag.embedder
+    torch.cuda.synchronize()
+    print(f"{tag} load_s {time.perf_counter() - t0:.2f} (seeded large-v3 "
+          f"weights + {profile} decode tree)", flush=True)
+    total = 4 + 224  # the prompt and Whisper's full decode budget
+    primed = prime_window(torch, asr, wav, total)
+    check_beam_modes(torch, K, asr, primed, total)
+    free_card(torch)
+    for mode in ("kernel", "onehot", "lazy"):
+        print(f"{tag} decode profile", json.dumps(
+            profile_beam(torch, asr, primed, total, mode)), flush=True)
+    del primed
+    free_card(torch)
+    return ingest_run(torch, K, tag, rag, profile, wav, BEAM_WB)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,spine,full,full_kv4,capacity",
+                    default="build,kernels,spine,full,full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
-                         "full,full_kv4,capacity")
+                         "full,full_kv4,capacity,beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -933,6 +1270,9 @@ def main() -> None:
         free_card(torch)
     if "capacity" in phases:
         by_path["capacity"] = phase_capacity(torch, K)
+        free_card(torch)
+    if "beam" in phases:
+        by_path["beam"] = phase_beam(torch, K)
         free_card(torch)
     print(f"total_s {time.perf_counter() - t_all:.1f}")
 

@@ -110,6 +110,8 @@ def test_matmul_q8w_kernel_on_card(cuda, B, din, dout, dtype):
     (2, 3, 5, 64, 301, torch.bfloat16),   # Ta not a multiple of 4
     (2, 4, 8, 64, 128, torch.float32),    # the most queries per row
     (16, 20, 1, 64, 1500, torch.bfloat16),
+    (16, 20, 5, 64, 1500, torch.bfloat16),  # beam 5 at large-v3 width
+    (16, 20, 8, 64, 1500, torch.bfloat16),  # a speculative verify block
 ])
 def test_cross_q8_kernel_on_card(cuda, B, H, M, hd, Ta, dtype):
     """f32 throughout; sums over Ta keys in another order."""
@@ -161,6 +163,8 @@ def test_matmul_q4w_kernel_on_card(cuda, B, din, dout, group, dtype):
     (2, 3, 5, 64, 301, torch.bfloat16),   # Ta not a multiple of 4
     (2, 4, 8, 64, 128, torch.float32),    # the most queries per row
     (32, 20, 1, 64, 1500, torch.bfloat16),
+    (16, 20, 5, 64, 1500, torch.bfloat16),  # beam 5 at large-v3 width
+    (16, 20, 8, 64, 1500, torch.bfloat16),  # a speculative verify block
 ])
 def test_cross_q4_kernel_on_card(cuda, B, H, M, hd, Ta, dtype):
     """f32 throughout; sums over Ta keys in another order."""
@@ -223,3 +227,61 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="one CUDA device or all"):
         K.decode_self_attention_q8(q[:, :, :1], k8, k8,
                                    torch.zeros((1, 128, 128)))
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("shape,dtype,index", [
+    ((2, 6, 2, 4, 16), torch.float32, "random"),
+    ((3, 10, 3, 7, 5), torch.bfloat16, "random"),     # ragged: byte path
+    ((3, 10, 3, 7, 5), torch.bfloat16, "identity"),   # aligned rows + tail
+    ((2, 12, 4, 9, 64), torch.float32, "fanout"),     # one source, 12 rows
+    ((4, 80, 20, 36, 64), torch.bfloat16, "random"),
+    ((1, 40, 1, 7296, 128), torch.bfloat16, "random"),  # long slabs
+])
+def test_beam_reorder_kernel_on_card(cuda, shape, dtype, index):
+    """A permutation copies bits: kernel and plain version agree exactly."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    sk, sv = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    N = shape[1]
+    idx = {"random": torch.randint(0, N, (N,), generator=g, device=cuda),
+           "identity": torch.arange(N, device=cuda),
+           "fanout": torch.full((N,), 3, device=cuda)}[index]
+    got = _launched("beam_reorder_kv", lambda: K.beam_reorder_kv(sk, sv, idx))
+    for a, b in zip(got, K.beam_reorder_kv_plain(sk, sv, idx)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_beam_reorder_refuses_what_it_does_not_take(cuda):
+    sk = torch.zeros((2, 4, 2, 3, 8), device=cuda)
+    idx = torch.arange(4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.beam_reorder_kv(sk.transpose(3, 4), sk.transpose(3, 4), idx)
+    with pytest.raises(ValueError, match="int64"):
+        K.beam_reorder_kv(sk, sk, idx.int())
+    with pytest.raises(ValueError, match="one CUDA device or all"):
+        K.beam_reorder_kv(sk, sk, idx.cpu())
+
+
+def test_onehot_reorder_is_exact_with_tf32_on(cuda):
+    """The one-hot matmul reorder of f32 caches stays exact when the global
+    switch allows TF32 (it turns TF32 off around itself), and leaves the
+    switch as it found it."""
+    from audio_rag_tpu_torch.models.whisper import _onehot_reorder
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    sk, sv = (torch.randn((3, 15, 4, 20, 64), generator=g, device=cuda)
+              for _ in range(2))
+    idx = torch.randint(0, 15, (15,), generator=g, device=cuda)
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 on
+    try:
+        got = _onehot_reorder((sk, sv), idx)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    for a, b in zip(got, K.beam_reorder_kv_plain(sk, sv, idx)):
+        assert torch.equal(_bits(a), _bits(b))

@@ -69,6 +69,12 @@ PROFILES = {
                        "self_kv_int8": True},
     "kv4+int8+lm4": {"cross_kv_int4": True, "decoder_int8": True,
                      "lm_head_int4": True},
+    # beam search (the port's default lazy reorder) and speculative greedy
+    # decoding in the production profile
+    "beam5+int8": {"cross_kv_int8": True, "decoder_int8": True,
+                   "decode": "beam", "beam_size": 5},
+    "spec8+int8": {"cross_kv_int8": True, "decoder_int8": True,
+                   "speculative_k": 8},
 }
 
 
