@@ -121,8 +121,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The kernel's shared library, named by a hash of the flags, every
+    header under csrc/ (a source may include any of them) and its source."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    h.update((_CSRC / "common.cuh").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update((_CSRC / KERNELS[name].source).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -167,8 +170,8 @@ _ARGTYPES = {
                         [_VP, _VP, _VP, _VP, ctypes.POINTER(ctypes.c_longlong),
                          _I, _I, _I, _I, _I, _F, _I, _VP]),
     "matmul_q8w": ("matmul_q8w_launch",
-                   [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
-                    _VP]),
+                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _VP]),
     "decode_cross_attention_q8": ("decode_cross_q8_launch",
                                   [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                                    _I, _F, _I, _I, _VP]),
@@ -176,8 +179,8 @@ _ARGTYPES = {
                                   [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                                    _I, _F, _I, _I, _VP]),
     "matmul_q4w": ("matmul_q4w_launch",
-                   [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _VP]),
+                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _VP]),
     "decode_self_attention_q8": ("decode_self_q8_launch",
                                  [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                   _I, _F, _I, _I, _VP]),
@@ -284,32 +287,129 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ov
 
 
+# -- weight-quantized matmuls: the launch plan -----------------------------------
+
+# csrc/wq_matmul.cuh: din rows per ring stage, x rows per block, output
+# columns per warp, x-row tiles (n8) the kernels are built for, bytes of a
+# bf16 x row in a ring slot, warps per block, most ring slots, most din
+# slices (one thread-block cluster)
+WQ_STAGE_K, WQ_ROWS, WQ_WARP_COLS = 64, 128, 32
+WQ_NT = (1, 2, 4, 8, 10, 16)
+_WQ_X_STRIDE = 2 * WQ_STAGE_K + 16
+WQ_WARPS = 8
+WQ_STAGES_MAX = 4
+WQ_SPLITS_MAX = 8
+WQ_SMEM_MAX = 226 * 1024  # H100's 227 KB a block, less the static bytes
+_WQ_SMEM_SM = 200 * 1024  # what the rings of an SM's blocks may share
+_WQ_PART_MAX = 96 * 1024  # a block's finished sums, read by its cluster
+WQ_SMS = 132  # H100 SXM streaming multiprocessors
+_WQ_BLOCKS = 200  # blocks a split call aims at
+
+
+class WqPlan(NamedTuple):
+    """How one ``matmul_q8w`` / ``matmul_q4w`` call is cut into blocks: the
+    grid is (column tiles of 32·wn, splits, row blocks of 128), each block
+    wn × wk warps, the splits of a tile one cluster."""
+    nt: int           #: n8 tiles of x rows per block (8·nt ≥ its rows)
+    wn: int           #: warps along the columns, 32 columns each
+    wk: int           #: warps along din, sharing a stage's 16-row chunks
+    splits: int       #: din slices, reduced in the same launch
+    k_per_split: int  #: din rows per slice, a multiple of WQ_STAGE_K
+    stages: int       #: ring slots in shared memory
+    group_mode: bool  #: int4: the group scale on each chunk's sums
+    smem: int         #: dynamic shared memory per block, bytes
+    col_tiles: int
+    row_blocks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.col_tiles * self.splits * self.row_blocks
+
+
+def wq_slot_bytes(bits: int, wn: int, nt: int) -> int:
+    """Bytes of one ring slot: a stage's weight tile (its rows padded
+    against bank conflicts) and its x slice as bf16."""
+    bn = WQ_WARP_COLS * wn
+    w_rows, pad = (WQ_STAGE_K, 16) if bits == 8 else (WQ_STAGE_K // 2, 32)
+    return w_rows * (bn + pad) + 8 * nt * _WQ_X_STRIDE
+
+
+def wq_reduce_bytes(wn: int, wk: int, nt: int) -> int:
+    """Shared memory the din warps hand their sums over in (the ring's)."""
+    return (wk - 1) * wn * 32 * 8 * nt * 4
+
+
+def wq_part_bytes(wn: int, nt: int) -> int:
+    """A block's finished sums in shared memory, read by its cluster."""
+    return 8 * nt * (WQ_WARP_COLS * wn + 4) * 4
+
+
+def wq_plan(B: int, din: int, dout: int, bits: int = 8,
+            group: int | None = None) -> WqPlan:
+    """The launch plan of one weight-quantized matmul call (sizes from
+    ``scripts/sweep_wq_plan.py`` on an H100). Every x row of a row block
+    sits in one block, so each weight byte is read once per call. A
+    weight as wide as the logits head fills the card with 256-column tiles
+    and is not split. A decode block's weight (1280 or 5120 columns) takes
+    64-column tiles (128 at 5120 columns or more than 64 x rows), the
+    block's other warps sharing din, and din is cut into up to 8 slices, one
+    cluster a tile, for about 200 blocks. The ring is as deep as the blocks
+    an SM holds at once leave room for."""
+    rows = min(B, WQ_ROWS)
+    nt = next(n for n in WQ_NT if 8 * n >= rows)
+    group_mode = bits == 4 and group is not None and group % 16 == 0
+    row_blocks = -(-B // WQ_ROWS)
+    n_stages = -(-din // WQ_STAGE_K)
+    if -(-dout // (WQ_WARP_COLS * WQ_WARPS)) * row_blocks >= WQ_SMS:
+        wn = WQ_WARPS
+    else:
+        wn = 4 if dout >= 4096 or nt >= 8 else 2
+    while wn > 2 and wq_part_bytes(wn, nt) > _WQ_PART_MAX:
+        wn //= 2
+    wk = WQ_WARPS // wn
+    col_tiles = -(-dout // (WQ_WARP_COLS * wn))
+    tiles = col_tiles * row_blocks
+    splits = 1
+    if tiles < WQ_SMS:
+        splits = min(WQ_SPLITS_MAX, n_stages, -(-_WQ_BLOCKS // tiles))
+    k_stages = -(-n_stages // splits)
+    splits = -(-n_stages // k_stages)
+    slot = wq_slot_bytes(bits, wn, nt)
+    per_sm = min(-(-tiles * splits // WQ_SMS),
+                 4 if nt <= 2 else 2 if nt <= 8 else 1)
+    stages = min(WQ_STAGES_MAX, k_stages + 1)
+    while stages > 2 and stages * slot > _WQ_SMEM_SM // per_sm:
+        stages -= 1
+    smem = max(stages * slot, wq_reduce_bytes(wn, wk, nt),
+               wq_part_bytes(wn, nt) if splits > 1 else 0)
+    return WqPlan(nt, wn, wk, splits, k_stages * WQ_STAGE_K, stages,
+                  group_mode, smem, col_tiles, row_blocks)
+
+
+def wq_launch(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+              plan: WqPlan) -> torch.Tensor:
+    """One launch of ``matmul_q8w``'s or ``matmul_q4w``'s kernel with the
+    given plan, on inputs the wrapper has checked (the plan sweep of
+    ``scripts/sweep_wq_plan.py`` passes its own plans)."""
+    B, din = x.shape
+    dout = w.shape[1]
+    out = torch.empty((B, dout), dtype=torch.float32, device=x.device)
+    quant = () if name == "matmul_q8w" else (din // s.shape[0],
+                                             int(plan.group_mode))
+    rc = _entry(name)(x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                      out.data_ptr(), B, din, dout, *quant, plan.nt,
+                      plan.wn, plan.wk, plan.splits, plan.k_per_split,
+                      plan.stages, _DTYPE_CODE[x.dtype], _stream(x))
+    _launched(name, rc)
+    return out
+
+
 # -- int8-weight matmul --------------------------------------------------------
-
-# csrc/matmul_q8w.cu and matmul_q4w.cu: columns and x rows per block, most
-# din rows per block
-_MM_COLS, _MM_ROWS, _MM_KMAX = 256, 16, 1280
-_MM_TARGET_BLOCKS = 2 * 132  # two blocks per H100 SM
-_MM_MIN_ROWS = 64  # fewest din rows worth a block of its own
-
 
 def matmul_q8w_plain(x: torch.Tensor, w8: torch.Tensor,
                      s: torch.Tensor) -> torch.Tensor:
     """bf16(x) · W8 in f32, then × s: the function of the TPU kernel."""
     return torch.matmul(x.bfloat16().float(), w8.float()) * s
-
-
-def _din_splits(B: int, din: int, dout: int,
-                step: int = 1) -> tuple[int, int]:
-    """(splits, k_per_split) of din for the weight matmuls: enough blocks
-    to fill the card, each slice within the kernel's shared-memory x
-    buffer and a multiple of ``step`` rows (2: whole int4 byte rows)."""
-    strips = -(-dout // _MM_COLS) * -(-B // _MM_ROWS)
-    want = min(-(-_MM_TARGET_BLOCKS // strips), din // _MM_MIN_ROWS)
-    splits = max(-(-din // _MM_KMAX), want, 1)
-    k_per = -(-din // splits)
-    k_per += -k_per % step
-    return -(-din // k_per), k_per
 
 
 def matmul_q8w(x: torch.Tensor, w8: torch.Tensor,
@@ -332,18 +432,7 @@ def matmul_q8w(x: torch.Tensor, w8: torch.Tensor,
     _check(x.dtype in _DTYPE_CODE, name, f"need f32 or bf16 x, got {x.dtype}")
     _check(B >= 1 and x.is_contiguous() and w8.is_contiguous()
            and s.is_contiguous(), name, "x, w8 and s must be contiguous")
-    out = torch.empty((B, dout), dtype=torch.float32, device=x.device)
-    splits, k_per = _din_splits(B, din, dout)
-    scratch = (torch.empty((splits, B, dout), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    vec = dout % 4 == 0 and w8.data_ptr() % 4 == 0 and s.data_ptr() % 16 == 0
-    rc = _entry(name)(x.data_ptr(), w8.data_ptr(), s.data_ptr(),
-                      out.data_ptr(),
-                      None if scratch is None else scratch.data_ptr(),
-                      B, din, dout, splits, k_per, int(vec),
-                      _DTYPE_CODE[x.dtype], _stream(x))
-    _launched(name, rc)
-    return out
+    return wq_launch(name, x, w8, s, wq_plan(B, din, dout, bits=8))
 
 
 # -- int8 decode cross-attention -------------------------------------------------
@@ -456,18 +545,8 @@ def matmul_q4w(x: torch.Tensor, w4: torch.Tensor,
     _check(x.dtype in _DTYPE_CODE, name, f"need f32 or bf16 x, got {x.dtype}")
     _check(B >= 1 and x.is_contiguous() and w4.is_contiguous()
            and s.is_contiguous(), name, "x, w4 and s must be contiguous")
-    out = torch.empty((B, dout), dtype=torch.float32, device=x.device)
-    splits, k_per = _din_splits(B, din, dout, step=2)
-    scratch = (torch.empty((splits, B, dout), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    vec = dout % 4 == 0 and w4.data_ptr() % 4 == 0 and s.data_ptr() % 16 == 0
-    rc = _entry(name)(x.data_ptr(), w4.data_ptr(), s.data_ptr(),
-                      out.data_ptr(),
-                      None if scratch is None else scratch.data_ptr(),
-                      B, din, dout, din // s.shape[0], splits, k_per,
-                      int(vec), _DTYPE_CODE[x.dtype], _stream(x))
-    _launched(name, rc)
-    return out
+    return wq_launch(name, x, w4, s,
+                     wq_plan(B, din, dout, bits=4, group=din // s.shape[0]))
 
 
 # -- int4 decode cross-attention ---------------------------------------------------

@@ -16,8 +16,11 @@ subset):
               shapes (beam search's too: cross-attention with 5 and 8
               queries per row, the weight matmuls at 80 rows, the cache
               reorder bit for bit at (32, 80, 20, 228, 64) and at the
-              beam-outermost probe's (1, 40, 1, 72960, 128)), printing the
-              error, tolerance, kernel / plain / library ms and bound;
+              beam-outermost probe's (1, 40, 1, 72960, 128)), and the
+              weight matmuls at edge shapes (1, 8, 80 and 129 rows, ragged
+              din and dout) with a second call's bits equal to the first's,
+              printing the error, tolerance, kernel / plain / library ms
+              and bound;
 3. spine    — ingests three spoken turns (tiny-synth ASR + eval-small
               embedder, committed trained weights) through ``AudioRAG`` in
               five decode profiles: int8 (cross_kv_int8 + decoder_int8),
@@ -223,9 +226,12 @@ def _q8w_case(torch, K, B, din, dout, xdtype, flush, timed):
     # din terms differ by at most 2·din·u·Σ|x·w| per output (u = 2^-24)
     mag = torch.matmul(x.bfloat16().float().abs(), w8.float().abs()) * s
     tol_el = 2 * din * 2.0 ** -24 * mag
-    ok = bool((err_el <= tol_el).all())
+    # split-K adds its din slices in a fixed order: a second call, same bits
+    same = _same_bits(torch, got, K.matmul_q8w(x, w8, s))
+    ok = bool((err_el <= tol_el).all()) and same
     row = {"shape": [B, din, dout], "dtype": str(xdtype).split(".")[-1],
-           "max_abs_err": err_el.max().item(),
+           "plan": list(K.wq_plan(B, din, dout)[:5]),
+           "same_bits_twice": same, "max_abs_err": err_el.max().item(),
            "tol": "2*din*2^-24*sum|x*w|*s per element",
            "max_tol": tol_el.max().item()}
     if timed:
@@ -293,10 +299,13 @@ def _q4w_case(torch, K, B, din, dout, group, xdtype, flush, timed):
     w = K.dequant_q4w(w4, s)
     mag = torch.matmul(x.bfloat16().float().abs(), w.abs())
     tol_el = 2 * din * 2.0 ** -24 * mag
-    ok = bool((err_el <= tol_el).all())
+    same = _same_bits(torch, got, K.matmul_q4w(x, w4, s))
+    ok = bool((err_el <= tol_el).all()) and same
+    plan = K.wq_plan(B, din, dout, bits=4, group=group)
     row = {"shape": [B, din, dout], "group": group,
            "dtype": str(xdtype).split(".")[-1],
-           "max_abs_err": err_el.max().item(),
+           "plan": list(plan[:5]), "group_mode": plan.group_mode,
+           "same_bits_twice": same, "max_abs_err": err_el.max().item(),
            "tol": "2*din*2^-24*sum|x*w| per element",
            "max_tol": tol_el.max().item()}
     if timed:
@@ -489,6 +498,15 @@ def phase_kernels(torch, K) -> dict:
             torch, K, 37, 300, 260, torch.float32, flush, t), False),
         ("matmul_q8w", lambda t: _q8w_case(   # byte loads, din split
             torch, K, 20, 1300, 77, torch.bfloat16, flush, t), False),
+        # edges: one row, 80 rows, two row blocks of x
+        ("matmul_q8w", lambda t: _q8w_case(
+            torch, K, 1, 200, 72, bf16, flush, t), False),
+        ("matmul_q8w", lambda t: _q8w_case(
+            torch, K, 8, 300, 260, f32, flush, t), False),
+        ("matmul_q8w", lambda t: _q8w_case(
+            torch, K, 80, 1300, 77, bf16, flush, t), False),
+        ("matmul_q8w", lambda t: _q8w_case(
+            torch, K, 129, 1280, 1280, bf16, flush, t), False),
         *[("matmul_q8w", (lambda din, dout: lambda t: _q8w_case(
             torch, K, 16, din, dout, bf16, flush, t))(din, dout),
             True) for din, dout, _ in LARGE_V3_Q8W],
@@ -518,6 +536,14 @@ def phase_kernels(torch, K) -> dict:
             torch, K, 37, 300, 260, 3, f32, flush, t), False),
         ("matmul_q4w", lambda t: _q4w_case(   # din split
             torch, K, 20, 1300, 77, 100, bf16, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(
+            torch, K, 1, 200, 72, 40, bf16, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(
+            torch, K, 8, 300, 260, 3, bf16, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(
+            torch, K, 80, 1300, 77, 100, f32, flush, t), False),
+        ("matmul_q4w", lambda t: _q4w_case(   # two row blocks
+            torch, K, 129, 1280, 1280, 80, bf16, flush, t), False),
         ("matmul_q4w", lambda t: _q4w_case(   # the benchmark profile's head
             torch, K, 32, 1280, 51968, 80, bf16, flush, t), True),
         # the capacity profile's all-int4 decode step at window batch 16
@@ -947,7 +973,12 @@ def trace_steps(torch, step, steps: int = 8, top: int = 6) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    # the weight-quantized matmuls (csrc/wq_matmul.cuh: one launch a call)
+    mm = [e for e in kernels if "wq_kernel" in e.name]
     return {"steps": steps, "decode_ms_per_step": host_ms / steps,
+            "wq_matmul_device_ms_per_step": sum(
+                e.time_range.elapsed_us() for e in mm) / 1e3 / steps,
+            "wq_matmul_launches_per_step": len(mm) / steps,
             "traced_host_ms_per_step": traced_ms / steps,
             "device_busy_ms_per_step": (busy_ms / steps if kernels
                                         else "not measured"),

@@ -400,3 +400,78 @@ def test_self_q8_rejects_bad_input(no_launches):
                                                     dtype=torch.int8),
                                    torch.zeros((1, 64, 8, 128),
                                                dtype=torch.int8), sc)
+
+
+# -- the launch plan of the weight-quantized matmuls ------------------------------
+
+_LARGE_V3 = [(1280, 1280, 80), (1280, 5120, 80), (5120, 1280, 128),
+             (1280, 51968, 80)]                     # (din, dout, q4 group)
+_TINY_SYNTH = [(128, 128, 128), (128, 512, 128), (512, 128, 64)]
+_CARD_TESTS = [(128, 512, 128), (200, 72, 40), (300, 260, 3),
+               (1300, 77, 100), (256, 512, 128), (300, 512, 3)]
+_PLAN_CASES = (
+    [(B, din, dout, bits, grp) for B in (16, 32, 80)
+     for din, dout, grp in _LARGE_V3 for bits in (8, 4)]
+    + [(B, din, dout, bits, grp) for B in (1, 5, 16, 40)
+       for din, dout, grp in _TINY_SYNTH for bits in (8, 4)]
+    + [(B, din, dout, bits, grp) for B in (1, 3, 8, 37, 80, 129)
+       for din, dout, grp in _CARD_TESTS for bits in (8, 4)])
+
+
+@pytest.mark.parametrize("B,din,dout,bits,group", _PLAN_CASES)
+def test_wq_plan_covers_the_call(B, din, dout, bits, group):
+    """Every shape the port and its card tests run: the din slices cover
+    din exactly in whole ring stages (so an int4 slice starts on a byte row
+    and, with per-group sums, every 16-row chunk lies in one group); every
+    output tile has a block; x rows fit one block up to 128 (no row-block
+    grid dimension, so the weight is read once per call); the ring, the
+    warps' hand-over and the cluster's sums fit shared memory."""
+    p = K.wq_plan(B, din, dout, bits=bits, group=group)
+    assert p.k_per_split % K.WQ_STAGE_K == 0
+    assert p.splits * p.k_per_split >= din > (p.splits - 1) * p.k_per_split
+    assert p.nt in K.WQ_NT and 8 * p.nt >= min(B, K.WQ_ROWS)
+    assert p.row_blocks == -(-B // K.WQ_ROWS)
+    assert B > K.WQ_ROWS or p.row_blocks == 1
+    bn = K.WQ_WARP_COLS * p.wn
+    assert p.wn in (2, 4, 8) and p.wn * p.wk == K.WQ_WARPS
+    assert p.col_tiles * bn >= dout > (p.col_tiles - 1) * bn
+    assert 2 <= p.stages <= K.WQ_STAGES_MAX
+    assert p.smem >= p.stages * K.wq_slot_bytes(bits, p.wn, p.nt)
+    assert p.smem >= K.wq_reduce_bytes(p.wn, p.wk, p.nt)
+    assert p.smem <= K.WQ_SMEM_MAX
+    # int4 sums each 16-row chunk in the mma and scales it when no chunk
+    # spans two groups; any other group takes the hi + lo split
+    assert p.group_mode == (bits == 4 and group % 16 == 0)
+    # a tile's din slices form one thread-block cluster and read each
+    # other's finished sums from shared memory
+    assert 1 <= p.splits <= K.WQ_SPLITS_MAX
+    assert p.splits == 1 or p.smem >= K.wq_part_bytes(p.wn, p.nt)
+
+
+@pytest.mark.parametrize("B,din,dout", [(16, 1280, 1280), (80, 1280, 1280),
+                                        (16, 5120, 1280), (32, 1280, 5120)])
+def test_wq_plan_fills_the_card_at_large_v3(B, din, dout):
+    """The decode step's small weights are split in din until at least
+    half the SMs have a block; the logits head keeps whole 256-column
+    tiles, one block each, and no split."""
+    p = K.wq_plan(B, din, dout)
+    assert p.blocks >= K.WQ_SMS // 2 and p.splits > 1
+    head = K.wq_plan(B, 1280, 51968, bits=4, group=80)
+    assert head.wn == 8 and head.splits == 1 and head.blocks >= K.WQ_SMS
+
+
+@pytest.mark.parametrize("name", ["matmul_q8w", "matmul_q4w"])
+@pytest.mark.parametrize("edited", ["wq_matmul.cuh", "common.cuh", "own"])
+def test_kernel_library_name_covers_headers(tmp_path, monkeypatch, name,
+                                            edited):
+    """Editing any header under csrc/ or the kernel's own source renames
+    its shared library, so a stale build is never loaded."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(K._CSRC, csrc)
+    monkeypatch.setattr(K, "_CSRC", csrc)
+    before = K._lib_path(name)
+    path = csrc / (K.KERNELS[name].source if edited == "own" else edited)
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert K._lib_path(name) != before

@@ -84,12 +84,21 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("B,din,dout,dtype", [
     (3, 128, 512, torch.float32),
-    (5, 200, 72, torch.bfloat16),
-    (37, 300, 260, torch.float32),    # two 16-row chunks of x
+    (5, 200, 72, torch.bfloat16),     # ragged dout: byte loads
+    (37, 300, 260, torch.float32),    # din not a multiple of 16
     (20, 1300, 77, torch.bfloat16),   # byte loads, din split
+    (1, 200, 72, torch.bfloat16),
+    (8, 300, 260, torch.float32),
+    (80, 1300, 77, torch.bfloat16),
+    (129, 1280, 1280, torch.bfloat16),  # two row blocks
+    (129, 300, 260, torch.float32),
+    (16, 1280, 1280, torch.bfloat16),   # split-K, fixed up in the launch
     (16, 1280, 5120, torch.bfloat16),
     (16, 5120, 1280, torch.bfloat16),
     (16, 1280, 51968, torch.bfloat16),
+    (80, 1280, 1280, torch.bfloat16),   # beam 5 x 16 windows
+    (80, 5120, 1280, torch.bfloat16),
+    (80, 1280, 51968, torch.bfloat16),
 ])
 def test_matmul_q8w_kernel_on_card(cuda, B, din, dout, dtype):
     """Exact products (bf16 × int8 fits f32); two f32 summation orders over
@@ -99,10 +108,37 @@ def test_matmul_q8w_kernel_on_card(cuda, B, din, dout, dtype):
     w8 = torch.randint(-127, 128, (din, dout), generator=g, device=cuda,
                        dtype=torch.int8)
     s = torch.rand((dout,), generator=g, device=cuda) * 0.015 + 0.005
+    _check_q8w(x, w8, s)
+
+
+def _check_q8w(x, w8, s):
     got = _launched("matmul_q8w", lambda: K.matmul_q8w(x, w8, s))
     ref = K.matmul_q8w_plain(x, w8, s)
     mag = torch.matmul(x.bfloat16().float().abs(), w8.float().abs()) * s
-    assert bool(((got - ref).abs() <= 2 * din * 2.0 ** -24 * mag).all())
+    assert bool(((got - ref).abs() <= 2 * x.shape[1] * 2.0 ** -24 * mag)
+                .all())
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("B,din,dout", [(16, 1280, 1280), (80, 256, 512)])
+def test_matmul_q8w_takes_unaligned_views(cuda, B, din, dout):
+    """x, w and s one element off their 16-byte alignment: the kernel loads
+    them itself instead of by cp.async."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = _unaligned(torch.randn((B, din), generator=g, device=cuda)
+                   .bfloat16())
+    w8 = _unaligned(torch.randint(-127, 128, (din, dout), generator=g,
+                                  device=cuda, dtype=torch.int8))
+    s = _unaligned(torch.rand((dout,), generator=g, device=cuda) * 0.01)
+    assert w8.data_ptr() % 16 and s.data_ptr() % 16 and x.data_ptr() % 16
+    _check_q8w(x, w8, s)
 
 
 @pytest.mark.parametrize("B,H,M,hd,Ta,dtype", [
@@ -141,10 +177,18 @@ def _q4_weight(g, din, dout, group, device):
     (5, 200, 72, 40, torch.bfloat16),     # ragged dout: byte loads
     (37, 300, 260, 3, torch.float32),     # odd group: row pairs span groups
     (20, 1300, 77, 100, torch.bfloat16),  # din split
+    (1, 200, 72, 40, torch.bfloat16),
+    (8, 300, 260, 3, torch.bfloat16),
+    (80, 1300, 77, 100, torch.float32),
+    (129, 1280, 1280, 80, torch.bfloat16),  # two row blocks
+    (129, 300, 260, 3, torch.float32),
     (32, 1280, 51968, 80, torch.bfloat16),  # the int4 logits head
+    (80, 1280, 51968, 80, torch.bfloat16),  # ... at beam 5 x 16 windows
     (16, 1280, 1280, 80, torch.bfloat16),
     (16, 1280, 5120, 80, torch.bfloat16),
     (16, 5120, 1280, 128, torch.bfloat16),
+    (80, 5120, 1280, 128, torch.bfloat16),
+    (16, 512, 128, 64, torch.float32),      # tiny-synth's widths
 ])
 def test_matmul_q4w_kernel_on_card(cuda, B, din, dout, group, dtype):
     """Exact products (bf16 × int4·bf16 scale fits f32); two f32 summation
@@ -152,10 +196,56 @@ def test_matmul_q4w_kernel_on_card(cuda, B, din, dout, group, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     x = torch.randn((B, din), generator=g, device=cuda).to(dtype)
     w4, s = _q4_weight(g, din, dout, group, cuda)
+    _check_q4w(x, w4, s)
+
+
+def _check_q4w(x, w4, s):
     got = _launched("matmul_q4w", lambda: K.matmul_q4w(x, w4, s))
     ref = K.matmul_q4w_plain(x, w4, s)
     mag = torch.matmul(x.bfloat16().float().abs(), K.dequant_q4w(w4, s).abs())
-    assert bool(((got - ref).abs() <= 2 * din * 2.0 ** -24 * mag).all())
+    assert bool(((got - ref).abs() <= 2 * x.shape[1] * 2.0 ** -24 * mag)
+                .all())
+
+
+@pytest.mark.parametrize("B,din,dout,group", [(16, 1280, 1280, 80),
+                                              (80, 300, 512, 3)])
+def test_matmul_q4w_takes_unaligned_views(cuda, B, din, dout, group):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = _unaligned(torch.randn((B, din), generator=g, device=cuda)
+                   .bfloat16())
+    w4, s = (_unaligned(t) for t in _q4_weight(g, din, dout, group, cuda))
+    assert w4.data_ptr() % 16 and s.data_ptr() % 16 and x.data_ptr() % 16
+    _check_q4w(x, w4, s)
+
+
+@pytest.mark.parametrize("name,B,din,dout,group", [
+    ("matmul_q8w", 16, 1280, 1280, None),   # 10 din slices
+    ("matmul_q8w", 80, 5120, 1280, None),
+    ("matmul_q4w", 16, 5120, 1280, 128),    # scaled chunk sums
+    ("matmul_q4w", 129, 1300, 1280, 100),   # hi + lo
+])
+def test_split_k_is_one_launch_and_deterministic(cuda, name, B, din, dout,
+                                                 group):
+    """A call whose din is split across blocks is still one launch (the
+    last block of each tile adds the slices), and two calls give the same
+    bits: the slices are added in a fixed order, with no atomics on the
+    values."""
+    plan = K.wq_plan(B, din, dout, bits=8 if group is None else 4,
+                     group=group)
+    assert plan.splits > 1
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((B, din), generator=g, device=cuda).bfloat16()
+    if group is None:
+        w = torch.randint(-127, 128, (din, dout), generator=g, device=cuda,
+                          dtype=torch.int8)
+        s = torch.rand((dout,), generator=g, device=cuda) * 0.01
+    else:
+        w, s = _q4_weight(g, din, dout, group, cuda)
+    fn = getattr(K, name)
+    first = _launched(name, lambda: fn(x, w, s))
+    for _ in range(3):
+        assert torch.equal(_bits(_launched(name, lambda: fn(x, w, s))),
+                           _bits(first))
 
 
 @pytest.mark.parametrize("B,H,M,hd,Ta,dtype", [
