@@ -158,8 +158,6 @@ class WhisperASR:
             lang_off = language_offset(lang)
         except ValueError:
             lang, lang_off = "en", 0
-        if self.dims.n_vocab < 51865:  # small vocabularies have one language
-            lang_off = 0
 
         segments: list[TranscriptSegment] = []
         bs = self.config.window_batch_size

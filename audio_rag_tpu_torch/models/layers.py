@@ -4,10 +4,13 @@ Counterpart of ``audio_rag_tpu/models/layers.py``: the same param trees
 (``{"w": (din, dout), "b": (dout,)}`` linears, ``{"g", "b"}`` norms), the
 same (B, H, T, D) attention layout and the same compute-dtype rules — a
 matmul takes its operands in the compute dtype and sums in f32, the bias is
-added in f32, the result is cast back. On the CPU, bf16 operands are
-widened to f32 before the product (exact, like XLA's
+added in f32, the result is rounded to the compute dtype once. On the CPU,
+bf16 operands are widened to f32 before the product (exact, like XLA's
 ``preferred_element_type=f32``); on CUDA a bf16 weight matmul runs on the
-bf16 tensor cores (f32 accumulate, one rounding of the product).
+bf16 tensor cores with an f32 output (``torch.mm(..., out_dtype=f32)``),
+so the product is not rounded to bf16 before the bias is added. f32
+products on CUDA run in full f32 whatever PyTorch's TF32 switches say
+(:func:`full_f32_matmul`, scoped to the call; no process-wide flag is set).
 
 Three routes go to the port's hand-written kernels
 (:mod:`audio_rag_tpu_torch.ops.kernels`): :func:`_attend` sends unmasked
@@ -24,6 +27,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from audio_rag_tpu_torch.device import full_f32_matmul
 from audio_rag_tpu_torch.ops import kernels
 
 Params = dict[str, Any]
@@ -31,6 +35,7 @@ Params = dict[str, Any]
 __all__ = [
     "Params",
     "mm_f32",
+    "mm_out_f32",
     "linear",
     "quantize_linear",
     "q4_tiles",
@@ -55,12 +60,22 @@ def take_layer(tree: Params, i: int) -> Params:
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result; bf16 operands are widened first (exact
-    products, f32 sums)."""
+    products, f32 sums), in full f32 even where the caller let f32
+    matmuls take TF32."""
     if a.dtype != torch.float32:
         a = a.float()
     if b.dtype != torch.float32:
         b = b.float()
-    return torch.matmul(a, b)
+    with full_f32_matmul():
+        return torch.matmul(a, b)
+
+
+def mm_out_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (..., din) @ w (din, dout) of bf16 CUDA tensors on the tensor
+    cores, returned in f32: exact products summed in f32 and not rounded
+    to bf16 (``aten::mm.dtype``, which PyTorch has for CUDA only)."""
+    y = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*a.shape[:-1], w.shape[-1])
 
 
 def linear(p: Params, x: torch.Tensor,
@@ -68,7 +83,7 @@ def linear(p: Params, x: torch.Tensor,
     x = x.to(dtype)
     w = p["w"].to(dtype)
     if x.is_cuda and dtype != torch.float32:
-        y = torch.matmul(x, w).float()
+        y = mm_out_f32(x, w)
     else:
         y = mm_f32(x, w)
     if "b" in p:

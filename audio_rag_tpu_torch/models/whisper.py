@@ -28,13 +28,13 @@ loop's self-attention goes to ``decode_self_attention_q8``; beam search's
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 
 import torch
 import torch.nn.functional as F
 
+from audio_rag_tpu_torch.device import full_f32_conv, full_f32_matmul
 from audio_rag_tpu_torch.models.layers import (
     Params,
     gelu,
@@ -45,6 +45,7 @@ from audio_rag_tpu_torch.models.layers import (
     mha,
     mlp,
     mm_f32,
+    mm_out_f32,
     quantize_linear,
     quantize_linear_q4,
     sinusoid_positions,
@@ -255,17 +256,26 @@ def init_whisper(dims: WhisperDims, seed: int = 0,
 def _conv1d(p: Params, x: torch.Tensor, stride: int,
             dtype: torch.dtype) -> torch.Tensor:
     """x (B, T, C_in) → (B, T/stride, C_out): kernel 3 with XLA's "SAME"
-    padding ((1, 1) at stride 1; (0, 1) at stride 2 on an even T)."""
-    T = x.shape[1]
+    padding ((1, 1) at stride 1; (0, 1) at stride 2 on an even T), f32
+    sums of exact products, the bias added in f32, one rounding."""
+    B, T, c_in = x.shape
     out_len = -(-T // stride)
     pad = max((out_len - 1) * stride + 3 - T, 0)
-    w = p["w"].to(dtype).permute(2, 1, 0)  # (3, Cin, Cout) → (Cout, Cin, 3)
-    xc = F.pad(x.to(dtype).transpose(1, 2), (pad // 2, pad - pad // 2))
-    if xc.is_cuda and dtype != torch.float32:
-        y = F.conv1d(xc, w, stride=stride).float()
+    w = p["w"].to(dtype)  # (3, Cin, Cout)
+    if x.is_cuda and dtype != torch.float32:
+        # im2col: row (b, t) holds the three taps' input features, tap
+        # major as w's rows; one product with an f32 output, so the sum is
+        # rounded to bf16 once, after the bias
+        xp = F.pad(x.to(dtype), (0, 0, pad // 2, pad - pad // 2))
+        cols = xp.unfold(1, 3, stride).transpose(2, 3)  # (B, T', 3, Cin)
+        y = mm_out_f32(cols.reshape(B, out_len, 3 * c_in),
+                       w.reshape(3 * c_in, -1))
     else:
-        y = F.conv1d(xc.float(), w.float(), stride=stride)
-    return (y.transpose(1, 2) + p["b"].float()).to(dtype)
+        xc = F.pad(x.to(dtype).transpose(1, 2), (pad // 2, pad - pad // 2))
+        with full_f32_conv(xc):
+            y = F.conv1d(xc.float(), w.float().permute(2, 1, 0),
+                         stride=stride).transpose(1, 2)
+    return (y + p["b"].float()).to(dtype)
 
 
 def encode(params: Params, dims: WhisperDims, mel: torch.Tensor,
@@ -1020,17 +1030,6 @@ def beam_start(cache: tuple[torch.Tensor, torch.Tensor],
                      reorder, eot)
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """f32 matmuls without TF32 inside, whatever the global switch says."""
-    saved = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved)
-
-
 def _onehot_reorder(cache, idx: torch.Tensor):
     """The JAX package's 0/1 one-hot matmul reorder, layer by layer (each
     (N, H·C·hd) layer slab is a view, so no transposed copy of the cache
@@ -1038,7 +1037,7 @@ def _onehot_reorder(cache, idx: torch.Tensor):
     N = idx.shape[0]
     onehot = F.one_hot(idx, N).to(cache[0].dtype)
     out = []
-    with _full_f32_matmul():
+    with full_f32_matmul():
         for c in cache:
             o = torch.empty_like(c)
             for layer in range(c.shape[0]):

@@ -47,8 +47,10 @@ import torch
 __all__ = [
     "KERNELS",
     "LAUNCHES",
+    "FLASH_VARIANTS",
     "reset_launches",
     "build",
+    "load",
     "int4_nibbles",
     "dequant_q4w",
     "flash_attention",
@@ -92,6 +94,12 @@ KERNELS: dict[str, Kernel] = {
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
+#: ``flash_attention`` launches by the kernel its C entry ran: "wgmma"
+#: (bf16, D = 64, q/k/v a TMA map can describe), "mma" (other bf16 with D
+#: a multiple of 16 and 16-byte strides), "cuda_cores" (the rest)
+FLASH_VARIANTS: dict[str, int] = {"cuda_cores": 0, "mma": 0, "wgmma": 0}
+_FLASH_VARIANT_NAMES = tuple(FLASH_VARIANTS)  # index = the entry's code
+
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -102,8 +110,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FLASH_VARIANTS):
+        for name in counts:
+            counts[name] = 0
 
 
 # -- build -----------------------------------------------------------------
@@ -120,19 +129,23 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    """The kernel's shared library, named by a hash of the flags, every
-    header under csrc/ (a source may include any of them) and its source."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+def _lib_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """The kernel's shared library, named by a hash of the flags and
+    ``defines``, every header under csrc/ (a source may include any of
+    them) and its source."""
+    h = hashlib.sha256(" ".join((*_NVCC_FLAGS, *defines)).encode())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update((_CSRC / KERNELS[name].source).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None, verbose: bool = False) -> dict[str, dict]:
+def build(names=None, verbose: bool = False,
+          defines: tuple[str, ...] = ()) -> dict[str, dict]:
     """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` process per source, all started together. Returns per kernel
+    ``nvcc`` process per source, all started together; ``defines``
+    ("NAME=value") are passed as ``-D`` and select a source's compile-time
+    variants (the port runs the defaults). Returns per kernel
     ``{"seconds", "log"}`` (``log`` holds ``-Xptxas -v`` output when
     ``verbose``); raises with nvcc's messages when a build fails."""
     names = list(KERNELS) if names is None else list(names)
@@ -140,11 +153,12 @@ def build(names=None, verbose: bool = False) -> dict[str, dict]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+        cmd = [_nvcc(), *_NVCC_FLAGS, *(f"-D{d}" for d in defines),
+               *(("-Xptxas", "-v") if verbose else ()),
                "-o", str(tmp), str(_CSRC / KERNELS[name].source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -168,7 +182,8 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "flash_attention": ("flash_attention_launch",
                         [_VP, _VP, _VP, _VP, ctypes.POINTER(ctypes.c_longlong),
-                         _I, _I, _I, _I, _I, _F, _I, _VP]),
+                         _I, _I, _I, _I, _I, _F, _I, _VP,
+                         ctypes.POINTER(ctypes.c_int)]),
     "matmul_q8w": ("matmul_q8w_launch",
                    [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _VP]),
@@ -190,19 +205,24 @@ _ARGTYPES = {
 }
 
 
+def load(name: str, defines: tuple[str, ...] = ()) -> None:
+    """Make the kernel's wrapper call the library built with ``defines``
+    (building it if needed); ``load(name)`` goes back to the defaults."""
+    path = _lib_path(name, defines)
+    if not path.exists():
+        build([name], defines=defines)
+    lib = ctypes.CDLL(str(path))
+    fn_name, argtypes = _ARGTYPES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _libs[name] = lib
+
+
 def _entry(name: str):
-    lib = _libs.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return getattr(lib, _ARGTYPES[name][0])
+    if name not in _libs:
+        load(name)
+    return getattr(_libs[name], _ARGTYPES[name][0])
 
 
 def _route(name: str, *tensors: torch.Tensor) -> bool:
@@ -252,10 +272,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     feature axis contiguous; other axes may be strided, e.g. a transposed
     (B, T, H, D) projection). Keys at index ≥ ``kv_len`` are masked.
     Returns (B, H, Tq, D) in q's dtype (a view of a (B, Tq, H, D) buffer on
-    CUDA, so the caller's merge of heads is free). On CUDA, bf16 with D a
-    multiple of 16 and strides of whole 16-byte units runs on the tensor
-    cores, the probabilities rounded to bf16 before P·V; everything else
-    computes in f32 on the CUDA cores."""
+    CUDA, so the caller's merge of heads is free). On CUDA, bf16 runs on
+    the tensor cores, the probabilities rounded to bf16 before P·V: D = 64
+    through warpgroup MMAs on TMA-fed tiles wherever a tensor map can
+    describe q, k and v (16-byte aligned, positive strides of whole 16-byte
+    units), other D a multiple of 16 with 16-byte strides through
+    ``mma.sync``; everything else computes in f32 on the CUDA cores.
+    :data:`FLASH_VARIANTS` counts which kernel each launch ran."""
     name = "flash_attention"
     _check(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, name,
            f"need (B, H, T, D) q/k/v, got {tuple(q.shape)}, "
@@ -280,10 +303,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 12)(*[
         s for t in (q, k, v, ov) for s in (t.stride(0), t.stride(1),
                                            t.stride(2))])
+    variant = ctypes.c_int(-1)
     rc = _entry(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       strides, B, H, Tq, D, kv_len, D ** -0.5,
-                      _DTYPE_CODE[q.dtype], _stream(q))
+                      _DTYPE_CODE[q.dtype], _stream(q), ctypes.byref(variant))
     _launched(name, rc)
+    FLASH_VARIANTS[_FLASH_VARIANT_NAMES[variant.value]] += 1
     return ov
 
 

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audio_rag_tpu_torch.device import full_f32_matmul
+
 __all__ = [
     "SAMPLE_RATE",
     "N_FFT",
@@ -101,11 +103,11 @@ def log_mel_batch(windows: torch.Tensor, n_mels: int = 128) -> torch.Tensor:
                    mode="reflect")[:, 0]
     frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]
     cos_b, sin_b = (torch.from_numpy(b).to(dev) for b in _dft_bases(N_FFT))
-    re = torch.matmul(frames, cos_b)
-    im = torch.matmul(frames, sin_b)
-    power = re * re + im * im
     fb = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
-    mel = torch.matmul(power, fb.t())
+    with full_f32_matmul():
+        re = torch.matmul(frames, cos_b)
+        im = torch.matmul(frames, sin_b)
+        mel = torch.matmul(re * re + im * im, fb.t())
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
     top = torch.amax(log_spec, dim=(1, 2), keepdim=True)
     log_spec = torch.maximum(log_spec, top - 8.0)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from audio_rag_tpu_torch.device import full_f32_matmul
+
 __all__ = [
     "NEG_INF",
     "dense_scores",
@@ -29,7 +31,8 @@ def rrf_prefetch(k: int) -> int:
 
 def dense_scores(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     """(B, dim) · (N, dim)ᵀ → (B, N) f32 inner products."""
-    return torch.matmul(queries.float(), corpus.float().t())
+    with full_f32_matmul():
+        return torch.matmul(queries.float(), corpus.float().t())
 
 
 def sparse_scores(q_tokens: torch.Tensor, q_weights: torch.Tensor,

@@ -56,10 +56,13 @@ subset):
               ``BEAM_REORDER=kernel``.
 
 Each path resets the launch counters before it runs, reads them after, and
-fails unless every kernel it runs was launched. TF32 is switched off for
-matmuls and cuDNN so f32 references are f32. The second-to-last line is
-the kernels JSON (launches summed over the paths, and by path); the last
-line is ``{"ok": true, "device": {...}}``.
+fails unless every kernel it runs was launched; on the large-v3 paths every
+encoder self-attention call (32 a window batch) must have taken
+``flash_attention``'s wgmma kernel. Every path runs with PyTorch's default
+TF32 switches, as a user's process has them (the port scopes f32 precision
+to its own calls); the script prints them. The second-to-last line is the
+kernels JSON (launches summed over the paths, and by path); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -128,6 +131,30 @@ LARGE_V3_Q4W = [(din, dout, calls, 128 if din == 5120 else 80)
                 for din, dout, calls in LARGE_V3_Q8W]
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "SETMAXREG", "MUFU.EX2", "HMMA")
+
+
+def sass_census(K, name: str) -> dict:
+    """Counts of some SASS instructions in a built kernel library
+    (``cuobjdump -sass``) and the first line of each, as evidence of what
+    the compiler emitted: HGMMA (wgmma), UTMALDG (TMA loads), SYNCS
+    (mbarrier), SETMAXREG (setmaxnreg), HMMA (mma.sync)."""
+    tool = Path(K._nvcc()).with_name("cuobjdump")
+    try:
+        out = subprocess.run([str(tool), "-sass", str(K._lib_path(name))],
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        return {"error": str(exc)}
+    lines = [ln.split("/*")[1].split("*/", 1)[1].strip()
+             for ln in out.splitlines() if ln.strip().startswith("/*")
+             and "*/" in ln]
+    return {op: {"count": sum(op in ln for ln in lines),
+                 "first": next((ln.rstrip(" ;") for ln in lines if op in ln),
+                               None)}
+            for op in SASS_OPS}
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -181,14 +208,62 @@ def bound_ms(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
 
 # -- phase 2: kernels against their plain versions --------------------------------
 
-def _flash_case(torch, K, shape, dtype, flush, timed, kv_len=None):
+def sm_clock_hz() -> float | None:
+    """The card's highest SM clock (``nvidia-smi`` ``clocks.max.sm``)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30, check=True)
+        return float(out.stdout.strip().splitlines()[0]) * 1e6
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return None
+
+
+MUFU_PER_CLOCK = 16  # exponentials a clock per SM (H100: 4 SFUs per SMSP)
+
+
+def mufu_bound(torch, B: int, H: int, Tq: int, Tk: int) -> dict:
+    """A second lower bound of an attention call beside ``bound_ms``,
+    computed, not measured: its B·H·Tq·Tk exponentials at an assumed
+    ``MUFU_PER_CLOCK`` a clock on every SM, at the card's highest SM clock
+    (``nvidia-smi`` ``clocks.max.sm``)."""
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = B * H * Tq * Tk
+    return {"b_h_tq_tk": [B, H, Tq, Tk], "exponentials": n,
+            "mufu_bound_ms": n / (MUFU_PER_CLOCK * sms * clock) * 1e3
+            if clock else None,
+            "assumes": {"exponentials_per_clock_per_sm": MUFU_PER_CLOCK,
+                        "sms": sms,
+                        "sm_clock_mhz": clock / 1e6 if clock else None}}
+
+
+def _flash_case(torch, K, shape, dtype, flush, timed, kv_len=None,
+                layout="bhtd", expect=None):
+    """``layout`` "bhtd": contiguous (B, H, T, D) q/k/v; "bthd": the
+    encoder's head-strided view of (B, T, H, D) projections; "zero": a
+    view with a zero batch stride, which no TMA map describes. ``expect``:
+    the kernel the entry must run (``FLASH_VARIANTS`` key)."""
     B, H, T, D = shape
     g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-               for _ in range(3))
+
+    def make():
+        if layout == "bthd":
+            return torch.randn((B, T, H, D), generator=g, device="cuda") \
+                .to(dtype).transpose(1, 2)
+        if layout == "zero":
+            return torch.randn((1, H, T, D), generator=g, device="cuda") \
+                .to(dtype).expand(B, H, T, D)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = make(), make(), make()
+    before = dict(K.FLASH_VARIANTS)
     got = K.flash_attention(q, k, v, kv_len)
+    ran = [n for n, c in K.FLASH_VARIANTS.items() if c != before[n]]
     ref = K.flash_attention_plain(q, k, v, kv_len)
     err = (got.float() - ref.float()).abs().max().item()
+    same = _same_bits(torch, got, K.flash_attention(q, k, v, kv_len))
     if dtype == torch.float32:
         # f32 sums over up to Tk keys in another order, expf vs torch.exp
         tol = 1e-4
@@ -198,7 +273,9 @@ def _flash_case(torch, K, shape, dtype, flush, timed, kv_len=None):
         # on the TPU does: allow two output ulps at the largest value
         tol = 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
     row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-           "kv_len": kv_len, "max_abs_err": err, "tol": tol}
+           "layout": layout, "kv_len": kv_len, "kernel": ran,
+           "same_bits_twice": same, "max_abs_err": err, "tol": tol}
+    ok = err <= tol and same and (expect is None or ran == [expect])
     if timed:
         esize = q.element_size()
         row["ms"] = time_ms(torch, lambda: K.flash_attention(q, k, v),
@@ -210,7 +287,7 @@ def _flash_case(torch, K, shape, dtype, flush, timed, kv_len=None):
         row["bound_ms"], row["bound_by"] = bound_ms(
             4 * B * H * T * D * esize, 4 * B * H * T * T * D,
             "bf16" if dtype == torch.bfloat16 else "f32")
-    return row, err <= tol
+    return row, ok
 
 
 def _q8w_case(torch, K, B, din, dout, xdtype, flush, timed):
@@ -480,16 +557,37 @@ def phase_kernels(torch, K) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         ("flash_attention", lambda t: _flash_case(
-            torch, K, (3, 4, 300, 32), torch.float32, flush, t), False),
+            torch, K, (3, 4, 300, 32), torch.float32, flush, t,
+            expect="cuda_cores"), False),
         ("flash_attention", lambda t: _flash_case(
-            torch, K, (2, 3, 77, 80), torch.bfloat16, flush, t), False),
+            torch, K, (2, 3, 77, 80), torch.bfloat16, flush, t,
+            expect="mma"), False),
         ("flash_attention", lambda t: _flash_case(
-            torch, K, (1, 2, 333, 128), torch.bfloat16, flush, t, 300),
+            torch, K, (1, 2, 333, 128), torch.bfloat16, flush, t, 300,
+            expect="mma"), False),
+        ("flash_attention", lambda t: _flash_case(
+            torch, K, (2, 3, 100, 40), torch.bfloat16, flush, t,
+            expect="cuda_cores"), False),
+        # the wgmma kernel: ragged tiles, one valid key in the last tile,
+        # one (b, h); a view no TMA map describes takes mma.sync
+        *[("flash_attention", (lambda T, kv: lambda t: _flash_case(
+            torch, K, (2, 3, T, 64), bf16, flush, t, kv, expect="wgmma"))(
+                T, kv), False)
+          for T, kv in ((1, None), (65, None), (193, None), (300, 257))],
+        ("flash_attention", lambda t: _flash_case(
+            torch, K, (1, 1, 200, 64), bf16, flush, t, expect="wgmma"),
             False),
         ("flash_attention", lambda t: _flash_case(
-            torch, K, (2, 3, 100, 40), torch.bfloat16, flush, t), False),
+            torch, K, (2, 3, 150, 64), bf16, flush, t, layout="zero",
+            expect="mma"), False),
+        # the main path: the encoder's head-strided view of its (B, T, H, D)
+        # projections, and the same shape contiguous
         ("flash_attention", lambda t: _flash_case(
-            torch, K, (16, 20, 1500, 64), torch.bfloat16, flush, t), True),
+            torch, K, (16, 20, 1500, 64), torch.bfloat16, flush, t,
+            layout="bthd", expect="wgmma"), True),
+        ("flash_attention@contiguous", lambda t: _flash_case(
+            torch, K, (16, 20, 1500, 64), torch.bfloat16, flush, t,
+            expect="wgmma"), True),
         ("matmul_q8w", lambda t: _q8w_case(
             torch, K, 3, 128, 512, torch.float32, flush, t), False),
         ("matmul_q8w", lambda t: _q8w_case(
@@ -648,10 +746,17 @@ def phase_kernels(torch, K) -> dict:
                 "a permutation"),
                ("@perm", "(32, 80, 20, 228, 64) bf16", "a permutation"))},
     }), flush=True)
+    print("flash_attention mufu bound (computed)",
+          json.dumps(mufu_bound(torch, 16, 20, 1500, 1500)), flush=True)
+    contiguous = large[FLASH + "@contiguous"][0]
     return {
         FLASH: {**agg(large[FLASH], [1]),
-                "per": "call at (16, 20, 1500, 64) bf16 "
-                       "(one encoder layer, 16 windows)"},
+                "contiguous": {key: contiguous[key] for key in (
+                    "ms", "plain_ms", "library_ms", "max_abs_err")},
+                "per": "call at (16, 20, 1500, 64) bf16, the encoder's "
+                       "head-strided view of its (B, T, H, D) projections "
+                       "(one encoder layer, 16 windows); \"contiguous\": "
+                       "the same shape in a (B, H, T, D) tensor"},
         Q8W: {**agg(large[Q8W], [c for _, _, c in LARGE_V3_Q8W]),
               "per": "decode step: 257 calls at B=16 (192×1280², "
                      "32×1280→5120, 32×5120→1280, 1×1280→51968)"},
@@ -771,12 +876,30 @@ def run_spine(device: str, profile: str, workdir: Path) -> dict:
     return out
 
 
-def check_launches(path: str, launches: dict, expect: set) -> None:
-    """Fail unless every kernel of the path launched."""
+WGMMA = FLASH + "_wgmma"  # flash launches that ran the wgmma kernel
+
+
+def launch_counts(K) -> dict:
+    """Launches per kernel since the last reset, and the flash launches
+    that took the wgmma kernel."""
+    return {**K.LAUNCHES, WGMMA: K.FLASH_VARIANTS["wgmma"]}
+
+
+def check_launches(path: str, launches: dict, expect: set,
+                   encoder_calls: int | None = None) -> None:
+    """Fail unless every kernel of the path launched and, where
+    ``encoder_calls`` is given (the large-v3 paths: 32 a window batch),
+    unless the path made exactly that many flash calls, all through the
+    wgmma kernel."""
     missing = sorted(name for name in expect if launches.get(name, 0) == 0)
     if missing:
         fail(f"{path}: kernels of the path never launched: {missing} "
              f"(launches {launches})")
+    if encoder_calls is not None and not (
+            launches[FLASH] == launches[WGMMA] == encoder_calls):
+        fail(f"{path}: expected {encoder_calls} encoder flash calls, all "
+             f"through the wgmma kernel; got {launches[FLASH]} calls, "
+             f"{launches[WGMMA]} through it")
 
 
 SPINE_PROFILES = ("int8", "int8+dec4+skv8", "kv4+int8+lm4", "beam5+int8",
@@ -790,7 +913,7 @@ def phase_spine(torch, K, workdir: Path) -> dict:
         K.reset_launches()
         out = run_spine("cuda", profile, workdir)
         torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts(K)
         tag = f"spine[{profile}]"
         transcripts[profile] = out["transcripts"]
         print(f"{tag} transcripts (chunk texts):",
@@ -1040,7 +1163,96 @@ def phase_full(torch, K, tag: str, profile: str, window_batch: int,
         profile_decode(torch, asr, got[0], state)), flush=True)
     del state, got
     free_card(torch)
+    if tag == "full":
+        print(f"{tag} encode", json.dumps(encode_repairs(torch, asr, wav)),
+              flush=True)
+        free_card(torch)
     return ingest_run(torch, K, tag, rag, profile, wav, n_windows)
+
+
+@contextlib.contextmanager
+def two_roundings(torch):
+    """The bf16 linear and convolution as the port computed them before it
+    rounded once: the product rounded to bf16 on the tensor cores, widened,
+    the bias added, rounded again (the yardstick of :func:`encode_repairs`
+    only)."""
+    import torch.nn.functional as F
+
+    from audio_rag_tpu_torch.models import layers, whisper
+
+    def linear(p, x, dtype=torch.bfloat16):
+        x = x.to(dtype)
+        y = torch.matmul(x, p["w"].to(dtype)).float()
+        if "b" in p:
+            y = y + p["b"].float()
+        return y.to(dtype)
+
+    def conv1d(p, x, stride, dtype):
+        T = x.shape[1]
+        out_len = -(-T // stride)
+        pad = max((out_len - 1) * stride + 3 - T, 0)
+        w = p["w"].to(dtype).permute(2, 1, 0)
+        xc = F.pad(x.to(dtype).transpose(1, 2), (pad // 2, pad - pad // 2))
+        y = F.conv1d(xc, w, stride=stride).float()
+        return (y.transpose(1, 2) + p["b"].float()).to(dtype)
+
+    saved = layers.linear, whisper._conv1d
+    layers.linear, whisper._conv1d = linear, conv1d
+    try:
+        yield
+    finally:
+        layers.linear, whisper._conv1d = saved
+
+
+def encode_repairs(torch, asr, wav, reps: int = 3) -> dict:
+    """Encode ms of the first window batch (host clock around a
+    synchronized call) with the port's linear and convolution, which round
+    bf16 products once, and with the two-rounding formulas they replaced,
+    in turns after a warm-up of each, every repetition reported; how far
+    the two encoder outputs lie apart; and a traced
+    encode's device time by kernel (:func:`trace_steps`)."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.models.whisper import encode
+    from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, log_mel_batch
+
+    dims = asr.dims
+    B, n = asr.config.window_batch_size, 2 * dims.n_audio_ctx * HOP_LENGTH
+    win = torch.from_numpy(np.ascontiguousarray(
+        wav[: B * n].reshape(B, n))).to(asr.device)
+
+    def run():
+        with torch.inference_mode():
+            mel = log_mel_batch(win, n_mels=dims.n_mels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = encode(asr._params, dims, mel, dtype=asr.dtype)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    run()  # warm-up of both formulas (each has first calls of its own)
+    with two_roundings(torch):
+        run()
+    once, twice = [], []
+    for _ in range(reps):
+        ms, out_once = run()
+        once.append(ms)
+        with two_roundings(torch):
+            ms, out_twice = run()
+        twice.append(ms)
+    diff = (out_once.float() - out_twice.float()).abs()
+    del out_once, out_twice
+    with torch.inference_mode():
+        mel = log_mel_batch(win, n_mels=dims.n_mels)
+    traced = trace_steps(torch, lambda: encode(asr._params, dims, mel,
+                                               dtype=asr.dtype), 2, top=8)
+    return {"window_batch": B,
+            "encode_ms_rounded_once": once, "encode_ms_rounded_twice": twice,
+            "outputs_max_abs_diff": diff.max().item(),
+            "outputs_mean_abs_diff": diff.mean().item(),
+            "traced": {key: traced[key] for key in (
+                "device_busy_ms_per_step", "kernel_launches_per_step",
+                "top_kernels_ms_per_step")}}
 
 
 def ingest_run(torch, K, tag: str, rag, profile: str, wav,
@@ -1062,7 +1274,7 @@ def ingest_run(torch, K, tag: str, rag, profile: str, wav,
     hits = rag.query("gradient descent", top_k=3, collection="full").results
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts(K)
     tm = asr.timings
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     out = {
@@ -1083,7 +1295,8 @@ def ingest_run(torch, K, tag: str, rag, profile: str, wav,
     if tm["windows"] != n_windows or not hits:
         fail(f"{tag}: expected {n_windows} windows and search hits, "
              f"got {out}")
-    check_launches(tag, launches, PROFILES[profile][1])
+    check_launches(tag, launches, PROFILES[profile][1],
+                   asr.dims.n_audio_layer * tm["batches"])
     if not all(math.isfinite(h.score) for h in hits):
         fail(f"{tag}: non-finite scores")
     return launches
@@ -1110,7 +1323,7 @@ def phase_capacity(torch, K) -> dict:
     got, fed, state = decode_window(torch, asr, wav, steps=8,
                                     cache_len=228)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts(K)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with plain_kernels(K):
         ref = decode_window(torch, asr, wav, steps=8, tokens=fed,
@@ -1118,7 +1331,8 @@ def phase_capacity(torch, K) -> dict:
     check_logits(tag, got, ref)
     print(f"{tag} launches", json.dumps(launches), "peak_mem_gb", peak_gb,
           flush=True)
-    check_launches(tag, launches, PROFILES[profile][1])
+    check_launches(tag, launches, PROFILES[profile][1],
+                   asr.dims.n_audio_layer)
     del ref
     print(f"{tag} decode profile", json.dumps(
         profile_decode(torch, asr, got[-1], state)), flush=True)
@@ -1269,10 +1483,11 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from audio_rag_tpu_torch.ops import kernels as K
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("tf32: off (torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False)")
+    print("tf32 switches, PyTorch's defaults, left as they are: "
+          f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}")
     print(card_line())  # nvidia-smi's name and power limit, as it gives them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -1284,6 +1499,9 @@ def main() -> None:
     for name, rep in report.items():
         if rep["log"]:
             print(f"--- nvcc {name} ({rep['seconds']:.1f} s)\n{rep['log']}")
+    if "build" in phases:
+        print("flash_attention sass", json.dumps(sass_census(K, FLASH)),
+              flush=True)
 
     measured: dict = {}
     by_path: dict[str, dict] = {}
@@ -1315,11 +1533,15 @@ def main() -> None:
             "source": f"audio_rag_tpu_torch/csrc/{kern.source}",
             "replaces": kern.replaces,
             "launches": sum(n.get(name, 0) for n in by_path.values()),
+            **({"wgmma_launches": sum(n.get(WGMMA, 0)
+                                      for n in by_path.values())}
+               if name == FLASH else {}),
             "launches_by_path": {path: n[name] for path, n in by_path.items()
                                  if n.get(name)},
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
+            **({"contiguous": m.get("contiguous")} if name == FLASH else {}),
             "per": m.get("per"),
         })
     print(json.dumps({"kernels": rows}))

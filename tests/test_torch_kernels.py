@@ -475,3 +475,14 @@ def test_kernel_library_name_covers_headers(tmp_path, monkeypatch, name,
     path = csrc / (K.KERNELS[name].source if edited == "own" else edited)
     path.write_text(path.read_text() + "\n// edited\n")
     assert K._lib_path(name) != before
+
+
+@pytest.mark.parametrize("defines", [("FLASH_WG_STAGES=3",),
+                                     ("FLASH_WG_CONSUMERS=2",
+                                      "FLASH_WG_TURNS=0")])
+def test_kernel_library_name_covers_defines(defines):
+    """A build with compile-time defines gets a library of its own, so the
+    defaults are never replaced by a variant on disk."""
+    name = "flash_attention"
+    assert K._lib_path(name, defines) != K._lib_path(name)
+    assert K._lib_path(name, defines) == K._lib_path(name, tuple(defines))

@@ -34,35 +34,83 @@ def _launched(name, fn):
     return out
 
 
+def _flash_kernel(dtype, D):
+    """The kernel the entry runs for contiguous, 16-byte aligned q/k/v."""
+    if dtype == torch.bfloat16 and D == 64:
+        return "wgmma"
+    return "mma" if dtype == torch.bfloat16 and D % 16 == 0 else "cuda_cores"
+
+
+def _check_flash(q, k, v, kv_len, atol, kernel):
+    """One launch, through ``kernel``, within ``atol`` of the plain
+    version, and the same bits from a second call."""
+    before = dict(K.FLASH_VARIANTS)
+    got = _launched("flash_attention",
+                    lambda: K.flash_attention(q, k, v, kv_len))
+    ran = [n for n, c in K.FLASH_VARIANTS.items() if c != before[n]]
+    assert ran == [kernel]
+    ref = K.flash_attention_plain(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+    again = K.flash_attention(q, k, v, kv_len)
+    assert torch.equal(got, again)
+    return got
+
+
 @pytest.mark.parametrize("shape,dtype,kv_len,atol", [
     ((3, 4, 300, 32), torch.float32, None, 1e-5),
     ((2, 3, 77, 80), torch.bfloat16, None, 2.0 ** -6),    # tensor cores
     ((2, 3, 100, 40), torch.bfloat16, None, 2.0 ** -7),   # CUDA cores
     ((1, 2, 333, 128), torch.bfloat16, 300, 2.0 ** -7),   # masked tail keys
     ((2, 20, 1500, 64), torch.bfloat16, None, 2.0 ** -7),
+    # the wgmma kernel: T around its 128-key tiles and 192-row items
+    *[((2, 3, T, 64), torch.bfloat16, None, 2.0 ** -7)
+      for T in (1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 1500)],
+    ((2, 3, 300, 64), torch.bfloat16, 257, 2.0 ** -7),  # one key in the
+    ((2, 3, 300, 64), torch.bfloat16, 129, 2.0 ** -7),  # last tile
+    ((2, 3, 300, 64), torch.bfloat16, 1, 2.0 ** -7),
+    ((3, 7, 2000, 64), torch.bfloat16, 1234, 2.0 ** -7),
+    ((1, 1, 200, 64), torch.bfloat16, None, 2.0 ** -7),   # B·H = 1
+    ((16, 20, 300, 64), torch.bfloat16, None, 2.0 ** -7),  # B·H = 320
 ])
 def test_flash_kernel_on_card(cuda, shape, dtype, kv_len, atol):
-    """bf16 output is one rounding of the f32 result; the tensor-core path
-    also rounds the probabilities to bf16 before P·V."""
+    """bf16 output is one rounding of the f32 result; the tensor-core paths
+    also round the probabilities to bf16 before P·V. Each shape runs the
+    kernel its dtype and D pick, and gives the same bits twice."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for _ in range(3))
-    got = _launched("flash_attention",
-                    lambda: K.flash_attention(q, k, v, kv_len))
-    ref = K.flash_attention_plain(q, k, v, kv_len)
-    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+    _check_flash(q, k, v, kv_len, atol, _flash_kernel(dtype, shape[3]))
 
 
 def test_flash_kernel_takes_head_strided_input(cuda):
     """The encoder hands over (B, T, H, D) projections transposed to
-    (B, H, T, D) views; the kernel reads them through their strides."""
+    (B, H, T, D) views; the kernels read them through their strides (the
+    wgmma kernel through a 4-D TMA map), at D = 32 and at large-v3's
+    (1500, 20, 64)."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v = (torch.randn((2, 150, 4, 32), generator=g, device=cuda)
-               .bfloat16().transpose(1, 2) for _ in range(3))
-    got = _launched("flash_attention", lambda: K.flash_attention(q, k, v))
-    ref = K.flash_attention_plain(q, k, v)
-    torch.testing.assert_close(got.float(), ref.float(), atol=2.0 ** -7,
-                               rtol=0)
+    for B, T, H, D in ((2, 150, 4, 32), (2, 1500, 20, 64)):
+        q, k, v = (torch.randn((B, T, H, D), generator=g, device=cuda)
+                   .bfloat16().transpose(1, 2) for _ in range(3))
+        _check_flash(q, k, v, None, 2.0 ** -7,
+                     _flash_kernel(torch.bfloat16, D))
+
+
+@pytest.mark.parametrize("view", ["zero_batch_stride", "off_16_bytes"])
+def test_flash_kernel_takes_mma_where_tma_cannot(cuda, view):
+    """bf16 at D = 64 that no TMA map describes runs on flash_mma_kernel
+    (a zero stride), or on the CUDA cores (a pointer off 16 bytes, which
+    neither tensor-core kernel takes)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    if view == "zero_batch_stride":
+        q, k, v = (torch.randn((1, 3, 150, 64), generator=g, device=cuda)
+                   .bfloat16().expand(2, 3, 150, 64) for _ in range(3))
+        kernel = "mma"
+    else:
+        q, k, v = (_unaligned(torch.randn((2, 3, 150, 64), generator=g,
+                                          device=cuda).bfloat16())
+                   for _ in range(3))
+        kernel = "cuda_cores"
+    _check_flash(q, k, v, None, 2.0 ** -7, kernel)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

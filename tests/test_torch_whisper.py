@@ -321,3 +321,78 @@ def test_greedy_decode_matches_jax(models, encoded, profile):
     if not q:
         np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), atol=1e-4)
         np.testing.assert_allclose(tns.numpy(), np.asarray(jns), atol=1e-5)
+
+
+# -- the language token of the prompt -------------------------------------------
+
+@pytest.fixture(scope="module")
+def backends():
+    """Both packages' ASR backends on tiny-synth (f32, greedy, no VAD, no
+    temperature fallback), loaded once, and one held-out utterance."""
+    from audio_rag_tpu.asr.whisper_jax import WhisperJaxASR
+    from audio_rag_tpu.config.schema import ASRConfig as JaxASRConfig
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+    from audio_rag_tpu_torch.config import ASRConfig
+
+    jasr = WhisperJaxASR(JaxASRConfig(
+        model_size="tiny-synth", compute_type="float32", vad_filter=False,
+        temperature_fallback=False))
+    jasr.load()
+    tasr = WhisperASR(ASRConfig(model_size="tiny-synth",
+                                compute_type="float32"), "cpu")
+    tasr.load()
+    wav = synth_text(HELD_OUT[0], np.random.default_rng(11),
+                     noise_level=0.005)
+    return jasr, tasr, wav
+
+
+def _until_eot(row, prompt_len, eot):
+    out = []
+    for i in row[prompt_len:].tolist():
+        if i == eot:
+            break
+        out.append(i)
+    return out
+
+
+@pytest.mark.parametrize("language", ["de", "en"])
+def test_explicit_language_prompt_matches_jax(backends, language,
+                                              monkeypatch):
+    """An explicit language puts ``lang_base + language_offset`` into the
+    prompt on any vocabulary, tiny-synth's included, as the JAX backend
+    does; both packages then decode the same tokens and text."""
+    jasr, tasr, wav = backends
+    seen = {"jax": [], "port": []}
+    program = jasr._program
+
+    def spy_program(*args, **kw):
+        run = program(*args, **kw)
+
+        def spied(params, mel, prompt):
+            out = run(params, mel, prompt)
+            seen["jax"].append((np.asarray(prompt), np.asarray(out[0])))
+            return out
+        return spied
+
+    decode = tasr._decode
+
+    def spy_decode(enc, prompt):
+        out = decode(enc, prompt)
+        seen["port"].append((prompt.numpy(), out[0].numpy()))
+        return out
+
+    monkeypatch.setattr(jasr, "_program", spy_program)
+    monkeypatch.setattr(tasr, "_decode", spy_decode)
+    jsegs = jasr.transcribe(wav, 16000, language=language)
+    tsegs = tasr.transcribe(wav, 16000, language=language)
+    st = tw.SpecialTokens.for_dims(TDIMS)
+    (jprompt, jtok), = seen["jax"]
+    (tprompt, ttok), = seen["port"]
+    assert tprompt[0].tolist() == jprompt[0].tolist() == [
+        st.sot, st.lang_base + tw.language_offset(language), st.transcribe,
+        st.no_timestamps]
+    P = tprompt.shape[1]
+    assert (_until_eot(ttok[0], P, st.eot)
+            == _until_eot(jtok[0], P, st.eot))
+    assert [s.text for s in tsegs] == [s.text for s in jsegs]
+    assert [s.language for s in tsegs] == [s.language for s in jsegs]
