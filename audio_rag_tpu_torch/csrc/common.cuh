@@ -36,16 +36,6 @@ __device__ __forceinline__ float s8(uint32_t w, int j) {
   return static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xffu));
 }
 
-// signed low / high nibble of byte j of a packed 32-bit word, in [-8, 7]:
-// the nibble is shifted to the top of the word, then arithmetic-shifted
-// down, which sign-extends it (the TPU kernels' (b << 28) >> 28 and b >> 4)
-__device__ __forceinline__ float s4lo(uint32_t w, int j) {
-  return static_cast<float>(static_cast<int32_t>(w << (28 - 8 * j)) >> 28);
-}
-__device__ __forceinline__ float s4hi(uint32_t w, int j) {
-  return static_cast<float>(static_cast<int32_t>(w << (24 - 8 * j)) >> 28);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -189,10 +189,10 @@ _ARGTYPES = {
                     _I, _I, _VP]),
     "decode_cross_attention_q8": ("decode_cross_q8_launch",
                                   [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                   _I, _F, _I, _I, _VP]),
+                                   _I, _F, _I, _I, _I, _I, _VP]),
     "decode_cross_attention_q4": ("decode_cross_q4_launch",
                                   [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                   _I, _F, _I, _I, _VP]),
+                                   _I, _F, _I, _I, _I, _I, _VP]),
     "matmul_q4w": ("matmul_q4w_launch",
                    [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _VP]),
@@ -460,10 +460,84 @@ def matmul_q8w(x: torch.Tensor, w8: torch.Tensor,
     return wq_launch(name, x, w8, s, wq_plan(B, din, dout, bits=8))
 
 
-# -- int8 decode cross-attention -------------------------------------------------
+# -- decode cross-attention: the launch plan ----------------------------------------
 
 _CROSS_SMEM_MAX = 227 * 1024  # H100 per-block shared memory
 
+# csrc/decode_cross.cuh: keys per chunk (a warp's unit), warps a block,
+# most head dim, ring slots, the most dynamic shared memory beside the
+# kernel's ~3.4 KB of static arrays
+CROSS_KEYS, CROSS_WARPS, CROSS_HD_MAX, CROSS_STAGES = 32, 8, 128, 2
+CROSS_SMEM_MAX = 223 * 1024
+
+
+class CrossPlan(NamedTuple):
+    """How one ``decode_cross_attention_q8`` / ``_q4`` call is cut: one
+    block of eight warps per (b, h) streaming K, then V, in stages of 16
+    byte rows (every key) through a ring of ``CROSS_STAGES`` slots; warp w
+    takes the 32-key chunks w, w + 8, ... of each stage. The scores, then in
+    place the probabilities, of every key stay in shared memory between the
+    passes."""
+    bulk: bool   #: each stage by one bulk copy (else by the threads)
+    ldk: int     #: a stage's row stride in shared memory
+    chunks: int  #: 32-key chunks over Ta
+    groups: int  #: 4-key groups a query's row of scores holds
+    smem: int    #: dynamic shared memory per block, bytes
+
+
+def cross_plan(bits: int, hd: int, Ta: int, M: int,
+               aligned: bool = True) -> CrossPlan:
+    """The launch plan of one decode cross-attention call over int8
+    (``bits`` 8, hd byte rows a (b, h)) or half-split int4 (hd/2 rows) K/V
+    with ``Ta`` keys and ``M`` queries a row. Any 16 byte rows are 16·Ta
+    contiguous bytes, a multiple of 16, so with 16-byte-aligned bases
+    (``aligned``) and Ta % 4 == 0 (the rows are read as 4-byte words) each
+    stage is one bulk copy; any other layout is copied by the threads into
+    rows of a word-multiple stride. Raises ``ValueError`` for a head dim
+    the m16 tiles do not cut evenly, or for two stages and M rows of Ta
+    scores that outgrow shared memory."""
+    rows = hd if bits == 8 else hd // 2
+    if not (1 <= hd <= CROSS_HD_MAX and (bits == 8 or hd % 2 == 0)
+            and rows in (16, 32, 64, 128)):
+        raise ValueError(
+            f"head dim {hd}: the kernel takes 16, 32, 64 or 128 byte rows "
+            f"(hd {16 * 8 // bits}, {32 * 8 // bits}, ... up to "
+            f"{CROSS_HD_MAX})")
+    bulk = aligned and Ta % 4 == 0
+    ldk = Ta if bulk else -(-Ta // 4) * 4
+    chunks = -(-Ta // CROSS_KEYS)
+    groups = -(-8 * chunks // 32) * 32
+    slot = -(-(16 * ldk + 32) // 16) * 16
+    # the ring also takes the warps' int64 P.V sums at the end
+    reduce = CROSS_WARPS * rows // 16 * (2 if bits == 4 else 1) * 4 * 32 * 8
+    smem = max(CROSS_STAGES * slot, reduce) + 16 * M * groups
+    if smem > CROSS_SMEM_MAX:
+        raise ValueError(f"Ta = {Ta} with M = {M}: two stages of 16 rows and "
+                         f"{M} rows of scores need {smem} bytes of shared "
+                         f"memory a block (most {CROSS_SMEM_MAX})")
+    return CrossPlan(bulk, ldk, chunks, groups, smem)
+
+
+def _cross_launch(name: str, q, k, v, ks, vs, bits: int) -> torch.Tensor:
+    """One launch of a cross kernel on inputs its wrapper has checked
+    (raises ``ValueError`` for a call :func:`cross_plan` refuses)."""
+    B, H, M, hd = q.shape
+    Ta = k.shape[3]
+    try:
+        plan = cross_plan(bits, hd, Ta, M, aligned=(
+            k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0))
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
+    out = torch.empty((B, H, M, hd), dtype=torch.float32, device=q.device)
+    rc = _entry(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
+                      B * H, M, hd, Ta, hd ** -0.5, int(plan.bulk),
+                      plan.ldk, plan.smem, _DTYPE_CODE[q.dtype], _stream(q))
+    _launched(name, rc)
+    return out
+
+
+# -- int8 decode cross-attention -------------------------------------------------
 
 def decode_cross_attention_q8_plain(q, k8, v8, ks, vs) -> torch.Tensor:
     """Dequantized f32 attention on the transposed (B, H, hd, Ta) layout:
@@ -500,19 +574,9 @@ def decode_cross_attention_q8(q: torch.Tensor, k8: torch.Tensor,
         return decode_cross_attention_q8_plain(q, k8, v8, ks, vs)
     _check(q.dtype in _DTYPE_CODE, name, f"need f32 or bf16 q, got {q.dtype}")
     _check(1 <= M <= 8, name, f"M = {M} queries per row; the kernel takes ≤ 8")
-    _check(4 * M * (Ta + hd) <= _CROSS_SMEM_MAX, name,
-           f"M·(Ta + hd) = {M * (Ta + hd)} floats exceed shared memory")
     _check(all(t.is_contiguous() for t in (q, k8, v8, ks, vs)), name,
            "q, k8, v8, ks and vs must be contiguous")
-    out = torch.empty((B, H, M, hd), dtype=torch.float32, device=q.device)
-    vec4 = (Ta % 4 == 0 and k8.data_ptr() % 4 == 0
-            and v8.data_ptr() % 4 == 0)
-    rc = _entry(name)(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
-                      ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
-                      B * H, M, hd, Ta, hd ** -0.5, int(vec4),
-                      _DTYPE_CODE[q.dtype], _stream(q))
-    _launched(name, rc)
-    return out
+    return _cross_launch(name, q, k8, v8, ks, vs, 8)
 
 
 # -- int4 helpers ------------------------------------------------------------------
@@ -614,19 +678,9 @@ def decode_cross_attention_q4(q: torch.Tensor, k4: torch.Tensor,
         return decode_cross_attention_q4_plain(q, k4, v4, ks, vs)
     _check(q.dtype in _DTYPE_CODE, name, f"need f32 or bf16 q, got {q.dtype}")
     _check(1 <= M <= 8, name, f"M = {M} queries per row; the kernel takes ≤ 8")
-    _check(4 * M * (Ta + hd) <= _CROSS_SMEM_MAX, name,
-           f"M·(Ta + hd) = {M * (Ta + hd)} floats exceed shared memory")
     _check(all(t.is_contiguous() for t in (q, k4, v4, ks, vs)), name,
            "q, k4, v4, ks and vs must be contiguous")
-    out = torch.empty((B, H, M, hd), dtype=torch.float32, device=q.device)
-    vec4 = (Ta % 4 == 0 and k4.data_ptr() % 4 == 0
-            and v4.data_ptr() % 4 == 0)
-    rc = _entry(name)(q.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                      ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
-                      B * H, M, hd, Ta, hd ** -0.5, int(vec4),
-                      _DTYPE_CODE[q.dtype], _stream(q))
-    _launched(name, rc)
-    return out
+    return _cross_launch(name, q, k4, v4, ks, vs, 4)
 
 
 # -- int8 decode self-attention ----------------------------------------------------

@@ -10,7 +10,9 @@ the JAX package. Phases (any failure exits non-zero; ``--phases`` picks a
 subset):
 
 1. build    — nvcc-builds the port's seven kernels (one process per
-              source, all started together) and prints the seconds it took;
+              source, all started together), prints the seconds it took
+              and a census of some SASS instructions in the flash and the
+              two cross-attention libraries;
 2. kernels  — holds each kernel against its plain PyTorch version on the
               card at small ragged shapes and at the Whisper large-v3
               shapes (beam search's too: cross-attention with 5 and 8
@@ -18,7 +20,8 @@ subset):
               reorder bit for bit at (32, 80, 20, 228, 64) and at the
               beam-outermost probe's (1, 40, 1, 72960, 128)), and the
               weight matmuls at edge shapes (1, 8, 80 and 129 rows, ragged
-              din and dout) with a second call's bits equal to the first's,
+              din and dout) and the cross-attention kernels with a second
+              call's bits equal to the first's,
               printing the error, tolerance, kernel / plain / library ms
               and bound;
 3. spine    — ingests three spoken turns (tiny-synth ASR + eval-small
@@ -37,7 +40,9 @@ subset):
               (cross_kv_int8 + decoder_int8, window batch 16) on 16 windows
               (8 min) of speech: first-step logits against the plain path on
               the card, a traced window of decode steps (host ms and device
-              busy ms per step, top kernels), encode ms per window batch,
+              busy ms per step, the weight matmuls' and the cross
+              attention's own device ms, top kernels), a traced encode,
+              encode ms per window batch,
               decode ms, RTF, peak memory, kernel launches;
 5. full_kv4 — the same at large-v3 shapes in the benchmark profile
               (cross_kv_int4 + decoder_int8 + lm_head_int4, window batch
@@ -131,14 +136,17 @@ LARGE_V3_Q4W = [(din, dout, calls, 128 if din == 5120 else 80)
                 for din, dout, calls in LARGE_V3_Q8W]
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "SETMAXREG", "MUFU.EX2", "HMMA")
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "SETMAXREG", "MUFU.EX2",
+            "HMMA", "IMMA", "I2F")
 
 
 def sass_census(K, name: str) -> dict:
     """Counts of some SASS instructions in a built kernel library
     (``cuobjdump -sass``) and the first line of each, as evidence of what
-    the compiler emitted: HGMMA (wgmma), UTMALDG (TMA loads), SYNCS
-    (mbarrier), SETMAXREG (setmaxnreg), HMMA (mma.sync)."""
+    the compiler emitted: HGMMA (wgmma), UTMALDG (TMA tensor loads), UBLKCP
+    (1-D bulk copies, cp.async.bulk), SYNCS (mbarrier), SETMAXREG
+    (setmaxnreg), HMMA (mma.sync on floats), IMMA (mma.sync on integers),
+    I2F (int-to-float conversions)."""
     tool = Path(K._nvcc()).with_name("cuobjdump")
     try:
         out = subprocess.run([str(tool), "-sass", str(K._lib_path(name))],
@@ -341,8 +349,10 @@ def _cross_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
     # f32 throughout; sums over Ta keys in another order (the JAX kernel
     # test's tolerance)
     tol = 1e-4 + 1e-4 * ref.abs().max().item()
+    same = _same_bits(torch, got, K.decode_cross_attention_q8(q, k8, v8, ks,
+                                                              vs))
     row = {"shape": [B, H, M, hd, Ta], "dtype": str(qdtype).split(".")[-1],
-           "max_abs_err": err, "tol": tol}
+           "max_abs_err": err, "tol": tol, "same_bits_twice": same}
     if timed:
         row["ms"] = time_ms(
             torch, lambda: K.decode_cross_attention_q8(q, k8, v8, ks, vs),
@@ -358,7 +368,7 @@ def _cross_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
             B * H * M * hd * q.element_size() + 2 * B * H * hd * Ta
             + 8 * B * H + 4 * B * H * M * hd, 4 * B * H * M * hd * Ta,
             "bf16")
-    return row, err <= tol
+    return row, err <= tol and same
 
 
 def _q4w_case(torch, K, B, din, dout, group, xdtype, flush, timed):
@@ -415,8 +425,10 @@ def _cross4_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
     err = (got - ref).abs().max().item()
     # f32 throughout; sums over Ta keys in another order
     tol = 1e-4 + 1e-4 * ref.abs().max().item()
+    same = _same_bits(torch, got, K.decode_cross_attention_q4(q, k4, v4, ks,
+                                                              vs))
     row = {"shape": [B, H, M, hd, Ta], "dtype": str(qdtype).split(".")[-1],
-           "max_abs_err": err, "tol": tol}
+           "max_abs_err": err, "tol": tol, "same_bits_twice": same}
     if timed:
         row["ms"] = time_ms(
             torch, lambda: K.decode_cross_attention_q4(q, k4, v4, ks, vs),
@@ -434,7 +446,7 @@ def _cross4_case(torch, K, B, H, M, hd, Ta, qdtype, flush, timed):
             B * H * M * hd * q.element_size() + B * H * hd * Ta
             + 8 * B * H * hd + 4 * B * H * M * hd, 4 * B * H * M * hd * Ta,
             "bf16")
-    return row, err <= tol
+    return row, err <= tol and same
 
 
 def _self8_case(torch, K, B, H, M, hd, Cp, n_valid, qdtype, flush, timed):
@@ -661,10 +673,18 @@ def phase_kernels(torch, K) -> dict:
             torch, K, 16, 20, BEAM, 64, 1500, bf16, flush, t), True),
         ("decode_cross_attention_q4@beam", lambda t: _cross4_case(
             torch, K, 16, 20, BEAM, 64, 1500, bf16, flush, t), True),
-        ("decode_cross_attention_q8", lambda t: _cross_case(  # a verify
-            torch, K, 16, 20, 8, 64, 1500, bf16, flush, t), False),  # block
+        # a speculative verify block, and the capacity profile's call
+        ("decode_cross_attention_q8@verify", lambda t: _cross_case(
+            torch, K, 16, 20, 8, 64, 1500, bf16, flush, t), True),
+        ("decode_cross_attention_q4@verify", lambda t: _cross4_case(
+            torch, K, 16, 20, 8, 64, 1500, bf16, flush, t), True),
+        ("decode_cross_attention_q4@capacity", lambda t: _cross4_case(
+            torch, K, 16, 20, 1, 64, 1500, bf16, flush, t), True),
+        # a long Ta, near the plan's shared-memory limit at M = 8
+        ("decode_cross_attention_q8", lambda t: _cross_case(
+            torch, K, 2, 3, 8, 64, 3400, bf16, flush, t), False),
         ("decode_cross_attention_q4", lambda t: _cross4_case(
-            torch, K, 16, 20, 8, 64, 1500, bf16, flush, t), False),
+            torch, K, 2, 3, 8, 64, 3400, f32, flush, t), False),
         *[("matmul_q8w@beam", (lambda din, dout: lambda t: _q8w_case(
             torch, K, BEAM * BEAM_WB, din, dout, bf16, flush, t))(din, dout),
             True) for din, dout, _ in LARGE_V3_Q8W[:3]],
@@ -735,6 +755,15 @@ def phase_kernels(torch, K) -> dict:
             agg(large["decode_cross_attention_q8@beam"], [1]),
         "decode_cross_attention_q4 at (16, 20, 5, 64), Ta 1500, per call":
             agg(large["decode_cross_attention_q4@beam"], [1]),
+        "decode_cross_attention_q4 at (16, 20, 1, 64), Ta 1500, per call "
+        "(the capacity profile)":
+            agg(large["decode_cross_attention_q4@capacity"], [1]),
+        "decode_cross_attention_q8 at (16, 20, 8, 64), Ta 1500, per call "
+        "(a speculative verify block)":
+            agg(large["decode_cross_attention_q8@verify"], [1]),
+        "decode_cross_attention_q4 at (16, 20, 8, 64), Ta 1500, per call "
+        "(a speculative verify block)":
+            agg(large["decode_cross_attention_q4@verify"], [1]),
         **{f"beam_reorder_kv at {at}, {how}": {
             **agg(large[REORDER + key], [1]),
             **{k: large[REORDER + key][0][k]
@@ -1096,12 +1125,17 @@ def trace_steps(torch, step, steps: int = 8, top: int = 6) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    # the weight-quantized matmuls (csrc/wq_matmul.cuh: one launch a call)
+    # the weight-quantized matmuls (csrc/wq_matmul.cuh) and the decode
+    # cross-attention (csrc/decode_cross.cuh): one launch a call each
     mm = [e for e in kernels if "wq_kernel" in e.name]
+    xa = [e for e in kernels if "cross_kernel" in e.name]
     return {"steps": steps, "decode_ms_per_step": host_ms / steps,
             "wq_matmul_device_ms_per_step": sum(
                 e.time_range.elapsed_us() for e in mm) / 1e3 / steps,
             "wq_matmul_launches_per_step": len(mm) / steps,
+            "cross_attention_device_ms_per_step": sum(
+                e.time_range.elapsed_us() for e in xa) / 1e3 / steps,
+            "cross_attention_launches_per_step": len(xa) / steps,
             "traced_host_ms_per_step": traced_ms / steps,
             "device_busy_ms_per_step": (busy_ms / steps if kernels
                                         else "not measured"),
@@ -1164,53 +1198,15 @@ def phase_full(torch, K, tag: str, profile: str, window_batch: int,
     del state, got
     free_card(torch)
     if tag == "full":
-        print(f"{tag} encode", json.dumps(encode_repairs(torch, asr, wav)),
+        print(f"{tag} traced encode", json.dumps(trace_encode(torch, asr, wav)),
               flush=True)
         free_card(torch)
     return ingest_run(torch, K, tag, rag, profile, wav, n_windows)
 
 
-@contextlib.contextmanager
-def two_roundings(torch):
-    """The bf16 linear and convolution as the port computed them before it
-    rounded once: the product rounded to bf16 on the tensor cores, widened,
-    the bias added, rounded again (the yardstick of :func:`encode_repairs`
-    only)."""
-    import torch.nn.functional as F
-
-    from audio_rag_tpu_torch.models import layers, whisper
-
-    def linear(p, x, dtype=torch.bfloat16):
-        x = x.to(dtype)
-        y = torch.matmul(x, p["w"].to(dtype)).float()
-        if "b" in p:
-            y = y + p["b"].float()
-        return y.to(dtype)
-
-    def conv1d(p, x, stride, dtype):
-        T = x.shape[1]
-        out_len = -(-T // stride)
-        pad = max((out_len - 1) * stride + 3 - T, 0)
-        w = p["w"].to(dtype).permute(2, 1, 0)
-        xc = F.pad(x.to(dtype).transpose(1, 2), (pad // 2, pad - pad // 2))
-        y = F.conv1d(xc, w, stride=stride).float()
-        return (y.transpose(1, 2) + p["b"].float()).to(dtype)
-
-    saved = layers.linear, whisper._conv1d
-    layers.linear, whisper._conv1d = linear, conv1d
-    try:
-        yield
-    finally:
-        layers.linear, whisper._conv1d = saved
-
-
-def encode_repairs(torch, asr, wav, reps: int = 3) -> dict:
-    """Encode ms of the first window batch (host clock around a
-    synchronized call) with the port's linear and convolution, which round
-    bf16 products once, and with the two-rounding formulas they replaced,
-    in turns after a warm-up of each, every repetition reported; how far
-    the two encoder outputs lie apart; and a traced
-    encode's device time by kernel (:func:`trace_steps`)."""
+def trace_encode(torch, asr, wav) -> dict:
+    """A traced encode of the first window batch (:func:`trace_steps`):
+    device time, launches and the kernels that take the most of it."""
     import numpy as np
 
     from audio_rag_tpu_torch.models.whisper import encode
@@ -1220,37 +1216,13 @@ def encode_repairs(torch, asr, wav, reps: int = 3) -> dict:
     B, n = asr.config.window_batch_size, 2 * dims.n_audio_ctx * HOP_LENGTH
     win = torch.from_numpy(np.ascontiguousarray(
         wav[: B * n].reshape(B, n))).to(asr.device)
-
-    def run():
-        with torch.inference_mode():
-            mel = log_mel_batch(win, n_mels=dims.n_mels)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = encode(asr._params, dims, mel, dtype=asr.dtype)
-            torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, out
-
-    run()  # warm-up of both formulas (each has first calls of its own)
-    with two_roundings(torch):
-        run()
-    once, twice = [], []
-    for _ in range(reps):
-        ms, out_once = run()
-        once.append(ms)
-        with two_roundings(torch):
-            ms, out_twice = run()
-        twice.append(ms)
-    diff = (out_once.float() - out_twice.float()).abs()
-    del out_once, out_twice
     with torch.inference_mode():
         mel = log_mel_batch(win, n_mels=dims.n_mels)
     traced = trace_steps(torch, lambda: encode(asr._params, dims, mel,
                                                dtype=asr.dtype), 2, top=8)
     return {"window_batch": B,
-            "encode_ms_rounded_once": once, "encode_ms_rounded_twice": twice,
-            "outputs_max_abs_diff": diff.max().item(),
-            "outputs_mean_abs_diff": diff.mean().item(),
-            "traced": {key: traced[key] for key in (
+            "host_ms_per_batch": traced["decode_ms_per_step"],
+            **{key.replace("_step", "_batch"): traced[key] for key in (
                 "device_busy_ms_per_step", "kernel_launches_per_step",
                 "top_kernels_ms_per_step")}}
 
@@ -1500,8 +1472,9 @@ def main() -> None:
         if rep["log"]:
             print(f"--- nvcc {name} ({rep['seconds']:.1f} s)\n{rep['log']}")
     if "build" in phases:
-        print("flash_attention sass", json.dumps(sass_census(K, FLASH)),
-              flush=True)
+        for name in (FLASH, CROSS8, CROSS4):
+            print(f"{name} sass", json.dumps(sass_census(K, name)),
+                  flush=True)
 
     measured: dict = {}
     by_path: dict[str, dict] = {}

@@ -460,6 +460,112 @@ def test_wq_plan_fills_the_card_at_large_v3(B, din, dout):
     assert head.wn == 8 and head.splits == 1 and head.blocks >= K.WQ_SMS
 
 
+# -- the decode cross-attention: its launch plan and its integer arithmetic -------
+
+# (hd, Ta): large-v3 (64, 1500), tiny-synth (32, 300), the test preset
+# (32, 60), and Ta around the 32-key chunks and the 4-byte words
+_CROSS_SHAPES = [(64, 1500), (32, 300), (32, 60), (64, 1), (64, 17),
+                 (64, 301), (64, 1501), (32, 33), (128, 1500)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+@pytest.mark.parametrize("hd,Ta", _CROSS_SHAPES)
+def test_cross_plan_covers_the_call(bits, hd, Ta, M):
+    """Every port shape: the byte rows cut into whole 16-row stages (the
+    m16 tiles), each one bulk copy of 16·Ta bytes, a multiple of 16, that
+    starts at a multiple of 16 from a 16-byte-aligned base; the chunks cover
+    Ta; a query's row of scores holds every key in 4-key groups a whole
+    number of warps apart; two ring slots, the warps' int64 sums and M rows
+    of scores fit shared memory."""
+    p = K.cross_plan(bits, hd, Ta, M)
+    rows = hd if bits == 8 else hd // 2
+    assert rows % 16 == 0 and rows // 16 in (1, 2, 4, 8)
+    assert p.chunks * K.CROSS_KEYS >= Ta > (p.chunks - 1) * K.CROSS_KEYS
+    assert p.groups % 32 == 0 and 4 * p.groups >= K.CROSS_KEYS * p.chunks
+    assert p.bulk == (Ta % 4 == 0)
+    if p.bulk:
+        assert p.ldk == Ta and 16 * Ta % 16 == 0
+        assert all((bh * rows + 16 * stage) * Ta % 16 == 0
+                   for bh in (0, 1, 319) for stage in range(rows // 16))
+    else:
+        assert p.ldk % 4 == 0 and Ta <= p.ldk < Ta + 4
+    slot = -(-(16 * p.ldk + 32) // 16) * 16
+    sums = K.CROSS_WARPS * rows // 16 * (8 // bits) * 4 * 32 * 8
+    assert p.smem == max(K.CROSS_STAGES * slot, sums) + 16 * M * p.groups
+    assert p.smem <= K.CROSS_SMEM_MAX
+
+
+def test_cross_plan_refuses_what_the_kernel_cannot_take():
+    """A base off 16 bytes leaves the bulk copies for the threads' copies;
+    head dims the m16 tiles do not cut and scores past shared memory
+    raise."""
+    assert not K.cross_plan(8, 64, 1500, 1, aligned=False).bulk
+    for bits, hd in ((8, 40), (4, 48), (8, 256), (4, 2)):
+        with pytest.raises(ValueError, match="head dim"):
+            K.cross_plan(bits, hd, 1500, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.cross_plan(8, 64, 8000, 8)
+
+
+def _cross_integer_design(q, k, v, ks, vs, bits):
+    """The kernel's arithmetic on the CPU: q·scale·ks as 24-bit fixed point
+    per query (the max within [2^22, 2^23)), exact integer products summed
+    per 16-row stage and each stage's sum added in f32, p = exp2 of the
+    scaled difference as round(p·2^23), exact integer P·V and sums, one
+    division. (The tensor cores' sums are exact integers, so only the f32
+    steps can differ from the card, by their rounding.)"""
+    B, H, M, hd = q.shape
+    lo_hi = (lambda x: torch.cat(K.int4_nibbles(x), dim=-2))
+    kk = (k if bits == 8 else lo_hi(k)).long()
+    vv = (v if bits == 8 else lo_hi(v)).long()
+    qp = q.float() * ((ks * hd ** -0.5) if bits == 8 else (hd ** -0.5 * ks))
+    amax = qp.abs().amax(-1, keepdim=True)
+    sh = torch.where(amax > 0, 22 - (torch.frexp(amax)[1] - 1),
+                     torch.zeros_like(amax, dtype=torch.int32))
+    qi = torch.round(torch.ldexp(qp.double(), sh.double())).long() \
+        .clamp(-2 ** 23, 2 ** 23 - 1)
+    rows = kk.shape[-2] if bits == 8 else kk.shape[-2] // 2
+    s = torch.zeros(B, H, M, kk.shape[-1])
+    for r in range(rows // 16):  # stage r: byte rows 16r .. 16r + 15
+        d = torch.arange(16 * r, 16 * r + 16)
+        if bits == 4:
+            d = torch.cat([d, d + hd // 2])
+        s += torch.matmul(qi[..., d], kk[..., d, :]).float()
+    iv = torch.ldexp(torch.full_like(amax, 1.4426950408889634),
+                     -sh.float())
+    p = torch.exp2((s - s.amax(-1, keepdim=True)) * iv)
+    pf = torch.round(p.double() * 2 ** 23).long()
+    num = torch.matmul(pf, vv.transpose(-1, -2))
+    return num.float() / pf.sum(-1, keepdim=True).float() * vs
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("B,H,M,hd,Ta,dtype", [
+    (2, 3, 1, 64, 1500, torch.bfloat16),
+    (2, 2, 5, 64, 1500, torch.float32),
+    (1, 2, 8, 64, 1500, torch.bfloat16),
+    (3, 2, 2, 32, 301, torch.float32),
+    (1, 1, 8, 64, 1, torch.float32),
+])
+def test_cross_integer_design_meets_the_tolerance(bits, B, H, M, hd, Ta,
+                                                  dtype):
+    """The integer tensor-core design's arithmetic, replayed on the CPU,
+    agrees with the plain version within the card tests' unchanged
+    tolerance (atol 2e-5, rtol 1e-5)."""
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((B, H, M, hd), generator=g).to(dtype)
+    rows, lo = (hd, -127) if bits == 8 else (hd // 2, -128)
+    k, v = (torch.randint(lo, 128, (B, H, rows, Ta), generator=g,
+                          dtype=torch.int8) for _ in range(2))
+    sc = (B, H, 1, 1) if bits == 8 else (B, H, 1, hd)
+    ks, vs = (torch.rand(sc, generator=g) * (0.015 if bits == 8 else 0.09)
+              + (0.005 if bits == 8 else 0.01) for _ in range(2))
+    plain = getattr(K, f"decode_cross_attention_q{bits}_plain")
+    torch.testing.assert_close(_cross_integer_design(q, k, v, ks, vs, bits),
+                               plain(q, k, v, ks, vs), atol=2e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["matmul_q8w", "matmul_q4w"])
 @pytest.mark.parametrize("edited", ["wq_matmul.cuh", "common.cuh", "own"])
 def test_kernel_library_name_covers_headers(tmp_path, monkeypatch, name,

@@ -189,6 +189,48 @@ def test_matmul_q8w_takes_unaligned_views(cuda, B, din, dout):
     _check_q8w(x, w8, s)
 
 
+# the cross kernels: every Ta around the 32-key chunks and the 4-byte rows
+# (1, 15, 17, 301, 1501 take the threads' copies), M 1, 2, 5, 8 in both q
+# dtypes at B·H = 1, and the large-v3 widths at B·H = 640
+_CROSS_EDGES = [(1, 1, M, 64, Ta, dtype)
+                for Ta in (1, 15, 16, 17, 301, 1500, 1501)
+                for M in (1, 2, 5, 8)
+                for dtype in (torch.float32, torch.bfloat16)]
+_CROSS_WIDE = [(32, 20, M, 64, Ta, torch.bfloat16)
+               for M in (1, 5, 8) for Ta in (1500, 1501)]
+# near the longest Ta the plan takes at M = 8 and at M = 1
+_CROSS_LONG = [(2, 3, 8, 64, 3400, torch.bfloat16),
+               (2, 3, 8, 64, 3399, torch.float32),
+               (1, 2, 1, 64, 6000, torch.bfloat16)]
+
+
+def _cross_inputs(g, bits, B, H, M, hd, Ta, dtype, device):
+    """q, K/V bytes (every int8 value, or every nibble) and scales: per
+    (b, h) for int8, per channel for int4."""
+    q = torch.randn((B, H, M, hd), generator=g, device=device).to(dtype)
+    rows, lo = (hd, -127) if bits == 8 else (hd // 2, -128)
+    k, v = (torch.randint(lo, 128, (B, H, rows, Ta), generator=g,
+                          device=device, dtype=torch.int8) for _ in range(2))
+    sc = (B, H, 1, 1) if bits == 8 else (B, H, 1, hd)
+    ks, vs = (torch.rand(sc, generator=g, device=device)
+              * (0.015 if bits == 8 else 0.09)
+              + (0.005 if bits == 8 else 0.01) for _ in range(2))
+    return q, k, v, ks, vs
+
+
+def _check_cross(bits, q, k, v, ks, vs):
+    """One launch, within the unchanged tolerance of the plain version (f32
+    throughout, sums over Ta keys in another order), and the same bits from
+    a second call."""
+    name = f"decode_cross_attention_q{bits}"
+    fn = getattr(K, name)
+    got = _launched(name, lambda: fn(q, k, v, ks, vs))
+    ref = getattr(K, name + "_plain")(q, k, v, ks, vs)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+    assert torch.equal(_bits(_launched(name, lambda: fn(q, k, v, ks, vs))),
+                       _bits(got))
+
+
 @pytest.mark.parametrize("B,H,M,hd,Ta,dtype", [
     (3, 4, 1, 32, 300, torch.float32),
     (2, 3, 5, 64, 301, torch.bfloat16),   # Ta not a multiple of 4
@@ -196,19 +238,39 @@ def test_matmul_q8w_takes_unaligned_views(cuda, B, din, dout):
     (16, 20, 1, 64, 1500, torch.bfloat16),
     (16, 20, 5, 64, 1500, torch.bfloat16),  # beam 5 at large-v3 width
     (16, 20, 8, 64, 1500, torch.bfloat16),  # a speculative verify block
+    *_CROSS_EDGES, *_CROSS_WIDE, *_CROSS_LONG,
 ])
 def test_cross_q8_kernel_on_card(cuda, B, H, M, hd, Ta, dtype):
-    """f32 throughout; sums over Ta keys in another order."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    q = torch.randn((B, H, M, hd), generator=g, device=cuda).to(dtype)
-    k8, v8 = (torch.randint(-127, 128, (B, H, hd, Ta), generator=g,
-                            device=cuda, dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand((B, H, 1, 1), generator=g, device=cuda) * 0.015
-              + 0.005 for _ in range(2))
-    got = _launched("decode_cross_attention_q8",
-                    lambda: K.decode_cross_attention_q8(q, k8, v8, ks, vs))
-    ref = K.decode_cross_attention_q8_plain(q, k8, v8, ks, vs)
-    torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+    _check_cross(8, *_cross_inputs(g, 8, B, H, M, hd, Ta, dtype, cuda))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,Ta", [(1, 1500), (5, 1500), (8, 301)])
+def test_cross_kernels_take_unaligned_views(cuda, bits, M, Ta):
+    """K and V one byte past a 16-byte boundary: the plan leaves the bulk
+    copies for the threads' copies, decided by the layout alone."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, ks, vs = _cross_inputs(g, bits, 4, 20, M, 64, Ta,
+                                    torch.bfloat16, cuda)
+    k, v = _unaligned(k), _unaligned(v)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    assert not K.cross_plan(bits, 64, Ta, M, aligned=False).bulk
+    _check_cross(bits, q, k, v, ks, vs)
+
+
+def test_cross_kernels_refuse_what_the_plan_refuses(cuda):
+    """A head dim the m16 tiles do not cut evenly, and M rows of Ta scores
+    past shared memory, raise before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    n = K.LAUNCHES["decode_cross_attention_q8"]
+    with pytest.raises(ValueError, match="head dim"):
+        K.decode_cross_attention_q8(*_cross_inputs(g, 8, 1, 2, 1, 40, 64,
+                                                   torch.float32, cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        K.decode_cross_attention_q8(*_cross_inputs(g, 8, 1, 1, 8, 64, 8000,
+                                                   torch.float32, cuda))
+    assert K.LAUNCHES["decode_cross_attention_q8"] == n
 
 
 def _q4_weight(g, din, dout, group, device):
@@ -303,19 +365,12 @@ def test_split_k_is_one_launch_and_deterministic(cuda, name, B, din, dout,
     (32, 20, 1, 64, 1500, torch.bfloat16),
     (16, 20, 5, 64, 1500, torch.bfloat16),  # beam 5 at large-v3 width
     (16, 20, 8, 64, 1500, torch.bfloat16),  # a speculative verify block
+    (16, 20, 1, 64, 1500, torch.bfloat16),  # the capacity profile
+    *_CROSS_EDGES, *_CROSS_WIDE, *_CROSS_LONG,
 ])
 def test_cross_q4_kernel_on_card(cuda, B, H, M, hd, Ta, dtype):
-    """f32 throughout; sums over Ta keys in another order."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    q = torch.randn((B, H, M, hd), generator=g, device=cuda).to(dtype)
-    k4, v4 = (torch.randint(-128, 128, (B, H, hd // 2, Ta), generator=g,
-                            device=cuda, dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand((B, H, 1, hd), generator=g, device=cuda) * 0.09
-              + 0.01 for _ in range(2))
-    got = _launched("decode_cross_attention_q4",
-                    lambda: K.decode_cross_attention_q4(q, k4, v4, ks, vs))
-    ref = K.decode_cross_attention_q4_plain(q, k4, v4, ks, vs)
-    torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+    _check_cross(4, *_cross_inputs(g, 4, B, H, M, hd, Ta, dtype, cuda))
 
 
 def _self_inputs(g, B, H, M, hd, Cp, n_valid, dtype, device):
