@@ -31,9 +31,24 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// byte j of a packed 32-bit word as a signed int8 value
-__device__ __forceinline__ float s8(uint32_t w, int j) {
-  return static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xffu));
+// |x| < 2^22 as an exact f32: x under the exponent of 2^23 + 2^22, minus it
+__device__ __forceinline__ float i2f_exact(int x) {
+  return __int_as_float(x + 0x4B400000) - 12582912.f;
+}
+
+// x[i] = byte i of each of w[0..3] (w[j]'s byte in byte j): four keys of
+// one row per word become four rows of one key per register (the A or dp4a
+// operand of the decode attention kernels' integer products)
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
+                                           uint32_t (&x)[4]) {
+  const uint32_t a = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t b = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t c = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t d = __byte_perm(w[2], w[3], 0x7362);
+  x[0] = __byte_perm(a, b, 0x5410);
+  x[1] = __byte_perm(a, b, 0x7632);
+  x[2] = __byte_perm(c, d, 0x5410);
+  x[3] = __byte_perm(c, d, 0x7632);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -47,6 +62,46 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// mbarriers and 1-D bulk async copies (cp.async.bulk), the loads of the
+// decode attention kernels
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one bulk async copy (1-D TMA) of `bytes` (a multiple of 16, both ends
+// 16-byte aligned) from global to this block's shared memory, counted on
+// `bar` together with its expected bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.

@@ -114,44 +114,6 @@ __host__ __device__ constexpr int smem_bytes(int bits, int hd, int ldk, int M,
   return ring_bytes(bits, hd, ldk) + 16 * M * groups;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// one bulk async copy (1-D TMA) of `bytes` (a multiple of 16, both ends
-// 16-byte aligned) from global to this block's shared memory, counted on
-// `bar` together with its expected bytes
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // Integer mma.sync with s32 sums; A s8 or u8 (AU), B s8 or u8 (BU).
 #define ARP_XQ_MMA16(NAME, AT, BT)                                        \
   __device__ __forceinline__ void NAME(int (&c)[4], uint32_t a0,          \
@@ -188,11 +150,6 @@ __device__ __forceinline__ void mma16(int (&c)[4], uint32_t a0, uint32_t a1,
   else mma16_uu(c, a0, a1, b);
 }
 
-// |x| < 2^22 as an exact f32: x under the exponent of 2^23 + 2^22, minus it
-__device__ __forceinline__ float i2f_exact(int x) {
-  return __int_as_float(x + 0x4B400000) - 12582912.f;
-}
-
 // a float's bits made monotone as a signed int (atomicMax on floats)
 __device__ __forceinline__ int ordered(float f) {
   const int b = __float_as_int(f);
@@ -200,20 +157,6 @@ __device__ __forceinline__ int ordered(float f) {
 }
 __device__ __forceinline__ float unordered(int b) {
   return __int_as_float(b >= 0 ? b : b ^ 0x7FFFFFFF);
-}
-
-// x[i] = byte i of each of w[0..3] (w[j]'s byte in byte j): four keys of
-// one row per word become four rows of one key per register
-__device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
-                                           uint32_t (&x)[4]) {
-  const uint32_t a = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t b = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t c = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t d = __byte_perm(w[2], w[3], 0x7362);
-  x[0] = __byte_perm(a, b, 0x5410);
-  x[1] = __byte_perm(a, b, 0x7632);
-  x[2] = __byte_perm(c, d, 0x5410);
-  x[3] = __byte_perm(c, d, 0x7632);
 }
 
 // the low / high nibbles of four packed int4 bytes as u8 values v + 8
@@ -670,8 +613,11 @@ inline bool prepare(Args& a, int bits) {
   return a.smem == smem_bytes(bits, a.hd, a.ldk, a.M, a.groups);
 }
 
+// static: the cached limit below stays this library's own where two builds
+// of the header share a process (a function-local static of a function
+// with external linkage is one object process-wide)
 template <int BITS, int T>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+static cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kern = cross_kernel<BITS, T>;
   static int dyn_max = -1;  // per instantiation, once
   if (dyn_max < 0) {

@@ -32,6 +32,14 @@ from audio_rag_tpu_torch.ops import kernels
 
 Params = dict[str, Any]
 
+# The JAX backend runs its quantizers under jit (the decoder weights once
+# at load, the self and cross caches inside the compiled decode), where XLA
+# turns a division by a constant into a product with its f32 reciprocal;
+# the port multiplies by the same reciprocals (exact f32 values held as
+# Python floats) to produce the same bits.
+_INV127 = float(torch.tensor(1.0) / 127.0)
+_INV7 = float(torch.tensor(1.0) / 7.0)
+
 __all__ = [
     "Params",
     "mm_f32",
@@ -93,11 +101,12 @@ def linear(p: Params, x: torch.Tensor,
 
 def quantize_linear(w: torch.Tensor) -> Params:
     """Per-out-channel symmetric int8 of a (din, dout) weight:
-    {"w8" (din, dout) int8, "s" (dout,) f32}. Same rounding (half to even)
-    and clipping as the JAX package, so both give identical trees."""
+    {"w8" (din, dout) int8, "s" (dout,) f32}. The JAX package's jitted
+    arithmetic (the scale times the f32 reciprocal of 127, rounding half to
+    even, the same clipping), so both give identical trees."""
     w = w.float()
     amax = torch.amax(torch.abs(w), dim=0)
-    s = torch.clamp(amax, min=1e-9) / 127.0
+    s = torch.clamp(amax, min=1e-9) * _INV127
     w8 = torch.clamp(torch.round(w / s[None, :]), -127, 127).to(torch.int8)
     return {"w8": w8, "s": s}
 
@@ -136,14 +145,14 @@ def q4_group(din: int) -> int:
 def quantize_linear_q4(w: torch.Tensor) -> Params:
     """Group-wise symmetric int4 of a (din, dout) weight: {"w4" (din/2,
     dout) int8 with din rows 2r and 2r + 1 in the low and high nibble of
-    byte row r, "s" (din/group, dout) f32}, group = :func:`q4_group`. Same
-    rounding and clipping as the JAX package, so both give identical
-    trees."""
+    byte row r, "s" (din/group, dout) f32}, group = :func:`q4_group`. The
+    JAX package's jitted arithmetic (the scale times the f32 reciprocal of
+    7, the same rounding and clipping), so both give identical trees."""
     w = w.float()
     din, dout = w.shape
     group = q4_group(din)
     g = w.reshape(din // group, group, dout)
-    s = torch.clamp(torch.amax(torch.abs(g), dim=1), min=1e-9) / 7.0
+    s = torch.clamp(torch.amax(torch.abs(g), dim=1), min=1e-9) * _INV7
     q = torch.clamp(torch.round(g / s[:, None, :]), -7, 7).to(torch.int32)
     q = q.reshape(din, dout)
     packed = (q[0::2] & 0x0F) | (q[1::2] << 4)

@@ -36,6 +36,8 @@ import torch.nn.functional as F
 
 from audio_rag_tpu_torch.device import full_f32_conv, full_f32_matmul
 from audio_rag_tpu_torch.models.layers import (
+    _INV7,
+    _INV127,
     Params,
     gelu,
     layer_norm,
@@ -297,15 +299,6 @@ def encode(params: Params, dims: WhisperDims, mel: torch.Tensor,
 
 # -- decoder ---------------------------------------------------------------
 
-# The JAX package divides by these constants inside compiled code (the
-# lax.map of precompute_cross_kv, the decode while_loop), where XLA turns a
-# division by a constant into a product with its f32 reciprocal; the port
-# multiplies by the same reciprocals (exact f32 values held as Python
-# floats) to produce the same bits.
-_INV127 = float(torch.tensor(1.0) / 127.0)
-_INV7 = float(torch.tensor(1.0) / 7.0)
-
-
 def _quant8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, H, Ta, D) → int8 (B, H, D, Ta) transposed + per-(B, H) f32 scale
     (B, H, 1, 1), exactly the JAX package's rounding."""
@@ -539,16 +532,17 @@ def quantize_self_cache(sk: torch.Tensor, sv: torch.Tensor, n_valid: int
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A primed (L, B, H, C, hd) self cache → the int8 decode form
     (k8 (L, B, H, hd, Cp) int8, v8 likewise, packed scales (L, B, Cp, 128)
-    f32) with per-position scales (amax over hd / 127, 1 where the amax is
-    0), C padded up to Cp, a multiple of 128; positions ≥ ``n_valid`` are
-    masked. Exactly the JAX package's rounding."""
+    f32) with per-position scales (amax over hd times the f32 reciprocal of
+    127, 1 where the amax is 0), C padded up to Cp, a multiple of 128;
+    positions ≥ ``n_valid`` are masked. Exactly the JAX package's jitted
+    arithmetic (it quantizes the primed cache inside its compiled decode)."""
     L, B, H, C, hd = sk.shape
     Cp = -(-C // 128) * 128
 
     def q(x):
         xf = x.float()
         a = torch.amax(torch.abs(xf), dim=-1)  # (L, B, H, C)
-        s = torch.where(a > 0, a / 127.0, 1.0)
+        s = torch.where(a > 0, a * _INV127, 1.0)
         x8 = torch.round(xf / s[..., None]).to(torch.int8)
         x8 = F.pad(x8.transpose(3, 4), (0, Cp - C)).contiguous()
         return x8, F.pad(s, (0, Cp - C))

@@ -198,7 +198,8 @@ _ARGTYPES = {
                     _I, _I, _I, _I, _VP]),
     "decode_self_attention_q8": ("decode_self_q8_launch",
                                  [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                                  _I, _F, _I, _I, _VP]),
+                                  _I, _F, _I, _I, _I, _I, _I, _I, _I,
+                                  _VP]),
     "beam_reorder_kv": ("beam_reorder_launch",
                         [_VP, _VP, _VP, _VP, _VP, _I, _I, ctypes.c_longlong,
                          _VP]),
@@ -462,8 +463,6 @@ def matmul_q8w(x: torch.Tensor, w8: torch.Tensor,
 
 # -- decode cross-attention: the launch plan ----------------------------------------
 
-_CROSS_SMEM_MAX = 227 * 1024  # H100 per-block shared memory
-
 # csrc/decode_cross.cuh: keys per chunk (a warp's unit), warps a block,
 # most head dim, ring slots, the most dynamic shared memory beside the
 # kernel's ~3.4 KB of static arrays
@@ -687,6 +686,77 @@ def decode_cross_attention_q4(q: torch.Tensor, k4: torch.Tensor,
 
 SELF_LANES = 128  # floats per packed scale row
 
+# csrc/decode_self_q8.cu: head-dim rows of a slice (one copy each where
+# every slice is in flight), the head dims the kernel takes, bytes a ragged
+# group reads past the slots, the most dynamic shared memory beside the
+# kernel's < 1 KB of static arrays
+SELF_SLICE_ROWS, SELF_HDS, SELF_SLACK = 16, (16, 32, 64, 128), 64
+SELF_SMEM_MAX = 226 * 1024
+
+
+class SelfPlan(NamedTuple):
+    """How one ``decode_self_attention_q8`` call is cut: one block of eight
+    warps per (b, h); K, then V, arrive in shared memory in stages of
+    ``rows`` head-dim rows (every position), each stage its own copy and
+    mbarrier. Where every 16-row slice fits (``slots`` = 2·``stages``, all
+    port shapes) all are issued at the block's start, so the scores of a K
+    slice run while the later ones land; longer caches stream stages of
+    whole slices through two slots. The scores, then in place the pieces
+    of p·vs, of every position stay in shared memory in rows of ``ldp``."""
+    bulk: bool   #: each stage by one bulk copy (else by the threads)
+    ldk: int     #: a cache row's stride in shared memory
+    ldp: int     #: a score row's floats: ldk to a multiple of 4·256/hd
+    rows: int    #: head-dim rows a stage holds, a multiple of 16
+    stages: int  #: stages of K, and of V
+    slots: int   #: stages held at once: 2·stages (all in flight) or 2
+    smem: int    #: dynamic shared memory per block, bytes
+
+
+def self_plan(hd: int, Cp: int, M: int, aligned: bool = True) -> SelfPlan:
+    """The launch plan of one decode self-attention call over an int8 self
+    cache of ``hd`` head dims and ``Cp`` positions, with ``M`` queries a
+    row. Any 16 rows of a (b, h)'s K or V are 16·Cp contiguous bytes, so
+    with 16-byte-aligned bases (``aligned``) and Cp % 16 == 0 each stage is
+    one bulk copy; any other layout is copied by the threads into rows of a
+    word-multiple stride. Every 16-row slice in flight at once where the
+    slots fit beside the scores (and, for M > 4, the slices' partial
+    scores), the scale and mask columns and q's pieces; else two slots of
+    the most rows that fit, a multiple of 16 dividing hd. Raises
+    ``ValueError`` for M outside 1–8, a head dim other than 16, 32, 64 or
+    128, and a cache whose two slots of 16 rows, scores and columns
+    outgrow shared memory."""
+    if not 1 <= M <= 8:
+        raise ValueError(f"M = {M} queries per row; the kernel takes 1 to 8")
+    if hd not in SELF_HDS:
+        raise ValueError(f"head dim {hd}: the kernel takes 16, 32, 64 or "
+                         f"128")
+    if Cp < 1:
+        raise ValueError(f"need Cp ≥ 1, got {Cp}")
+    bulk = aligned and Cp % 16 == 0
+    ldk = Cp if bulk else -(-Cp // 4) * 4
+    lanes = 4 * 256 // hd  # a P.V row's lanes read words ldp / lanes apart
+    ldp = -(-ldk // lanes) * lanes
+    fixed = SELF_SLACK + 8 * M * ldp + 12 * ldp + 3 * M * hd
+
+    def smem(slots: int, rows: int) -> int:
+        parts = (4 * hd // SELF_SLICE_ROWS * M * ldp
+                 if slots == 2 * (hd // rows) and M > 4 else 0)
+        return slots * rows * ldk + parts + fixed
+
+    stages = hd // SELF_SLICE_ROWS
+    if smem(2 * stages, SELF_SLICE_ROWS) <= SELF_SMEM_MAX:
+        return SelfPlan(bulk, ldk, ldp, SELF_SLICE_ROWS, stages, 2 * stages,
+                        smem(2 * stages, SELF_SLICE_ROWS))
+    for rows in range(hd // 2, SELF_SLICE_ROWS - 1, -SELF_SLICE_ROWS):
+        if hd % rows == 0 and smem(2, rows) <= SELF_SMEM_MAX:
+            return SelfPlan(bulk, ldk, ldp, rows, hd // rows, 2,
+                            smem(2, rows))
+    raise ValueError(
+        f"Cp = {Cp} with M = {M}, hd = {hd}: two slots of 16 rows, {M} "
+        f"rows of scores, the scale and mask columns and q's pieces need "
+        f"{smem(2, SELF_SLICE_ROWS)} bytes of shared memory a block (most "
+        f"{SELF_SMEM_MAX})")
+
 
 def decode_self_attention_q8_plain(q, k8, v8, sc) -> torch.Tensor:
     """Scores scaled per position and masked, softmax, probabilities times
@@ -708,7 +778,8 @@ def decode_self_attention_q8(q: torch.Tensor, k8: torch.Tensor,
     scales: q (B, H, M, hd) f32/bf16 with M ≤ 8; k8, v8 (B, H, hd, Cp)
     int8; sc (B, Cp, 128) f32 holding, for position t, the K scales of the
     H heads in lanes [0, H), the V scales in [H, 2H) and the additive mask
-    (0 valid, -1e30 not) in lane 2H → (B, H, M, hd) f32."""
+    (0 valid, -1e30 not) in lane 2H → (B, H, M, hd) f32. On CUDA the call
+    takes what :func:`self_plan` takes and raises ``ValueError`` otherwise."""
     name = "decode_self_attention_q8"
     _check(q.dim() == 4 and k8.dim() == 4 and v8.shape == k8.shape
            and sc.dim() == 3, name,
@@ -729,17 +800,20 @@ def decode_self_attention_q8(q: torch.Tensor, k8: torch.Tensor,
         return decode_self_attention_q8_plain(q, k8, v8, sc)
     _check(q.dtype in _DTYPE_CODE, name, f"need f32 or bf16 q, got {q.dtype}")
     _check(1 <= M <= 8, name, f"M = {M} queries per row; the kernel takes ≤ 8")
-    _check(4 * M * (Cp + hd) <= _CROSS_SMEM_MAX, name,
-           f"M·(Cp + hd) = {M * (Cp + hd)} floats exceed shared memory")
+    _check(B <= 65535, name, f"B = {B} rows of blocks; the grid takes ≤ 65535")
     _check(all(t.is_contiguous() for t in (q, k8, v8, sc)), name,
            "q, k8, v8 and sc must be contiguous")
+    try:
+        plan = self_plan(hd, Cp, M, aligned=(
+            k8.data_ptr() % 16 == 0 and v8.data_ptr() % 16 == 0))
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
     out = torch.empty((B, H, M, hd), dtype=torch.float32, device=q.device)
-    vec4 = (Cp % 4 == 0 and k8.data_ptr() % 4 == 0
-            and v8.data_ptr() % 4 == 0)
     rc = _entry(name)(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
                       sc.data_ptr(), out.data_ptr(), B, H, M, hd, Cp,
-                      hd ** -0.5, int(vec4), _DTYPE_CODE[q.dtype],
-                      _stream(q))
+                      hd ** -0.5, int(plan.bulk), plan.ldk, plan.ldp,
+                      plan.rows, plan.slots, plan.smem,
+                      _DTYPE_CODE[q.dtype], _stream(q))
     _launched(name, rc)
     return out
 

@@ -11,8 +11,8 @@ subset):
 
 1. build    — nvcc-builds the port's seven kernels (one process per
               source, all started together), prints the seconds it took
-              and a census of some SASS instructions in the flash and the
-              two cross-attention libraries;
+              and a census of some SASS instructions in the flash, the
+              two cross-attention and the self-attention libraries;
 2. kernels  — holds each kernel against its plain PyTorch version on the
               card at small ragged shapes and at the Whisper large-v3
               shapes (beam search's too: cross-attention with 5 and 8
@@ -20,8 +20,9 @@ subset):
               reorder bit for bit at (32, 80, 20, 228, 64) and at the
               beam-outermost probe's (1, 40, 1, 72960, 128)), and the
               weight matmuls at edge shapes (1, 8, 80 and 129 rows, ragged
-              din and dout) and the cross-attention kernels with a second
-              call's bits equal to the first's,
+              din and dout), the self-attention kernel at Cp 1 to 2048,
+              and the weight matmuls and the attention kernels with a
+              second call's bits equal to the first's,
               printing the error, tolerance, kernel / plain / library ms
               and bound;
 3. spine    — ingests three spoken turns (tiny-synth ASR + eval-small
@@ -40,7 +41,7 @@ subset):
               (cross_kv_int8 + decoder_int8, window batch 16) on 16 windows
               (8 min) of speech: first-step logits against the plain path on
               the card, a traced window of decode steps (host ms and device
-              busy ms per step, the weight matmuls' and the cross
+              busy ms per step, the weight matmuls' and the cross and self
               attention's own device ms, top kernels), a traced encode,
               encode ms per window batch,
               decode ms, RTF, peak memory, kernel launches;
@@ -465,10 +466,13 @@ def _self8_case(torch, K, B, H, M, hd, Cp, n_valid, qdtype, flush, timed):
     err = (got - ref).abs().max().item()
     # f32 throughout; sums over Cp positions in another order
     tol = 1e-4 + 1e-4 * ref.abs().max().item()
-    ok = err <= tol and bool(torch.isfinite(got).all())
+    same = _same_bits(torch, got, K.decode_self_attention_q8(q, k8, v8, sc))
+    ok = err <= tol and bool(torch.isfinite(got).all()) and same
+    plan = K.self_plan(hd, Cp, M, aligned=(k8.data_ptr() % 16 == 0
+                                           and v8.data_ptr() % 16 == 0))
     row = {"shape": [B, H, M, hd, Cp], "n_valid": n_valid,
-           "dtype": str(qdtype).split(".")[-1], "max_abs_err": err,
-           "tol": tol}
+           "dtype": str(qdtype).split(".")[-1], "plan": list(plan),
+           "max_abs_err": err, "tol": tol, "same_bits_twice": same}
     if timed:
         # the library yardstick: SDPA on dequantized bf16 K/V, same mask
         kd = (k8.float() * sc[:, None, :, :H].permute(0, 3, 1, 2)) \
@@ -486,9 +490,10 @@ def _self8_case(torch, K, B, H, M, hd, Cp, n_valid, qdtype, flush, timed):
             flush=flush)
         row["library_ms"] = time_ms(
             torch, lambda: sdpa(qb, kd, vd, attn_mask=mask), flush=flush)
+        # the packed operand's lanes the function reads: [0, 2H]
         row["bound_ms"], row["bound_by"] = bound_ms(
             B * H * M * hd * q.element_size() + 2 * B * H * hd * Cp
-            + 4 * B * Cp * 128 + 4 * B * H * M * hd,
+            + 4 * B * Cp * (2 * H + 1) + 4 * B * H * M * hd,
             4 * B * H * M * hd * Cp, "bf16")
     return row, ok
 
@@ -668,6 +673,19 @@ def phase_kernels(torch, K) -> dict:
             torch, K, 1, 4, 1, 32, 128, 0, f32, flush, t), False),
         ("decode_self_attention_q8", lambda t: _self8_case(
             torch, K, 16, 20, 1, 64, 256, 40, bf16, flush, t), True),
+        # the capacity profile at Whisper's longest cache, the spine's
+        # int8+dec4+skv8 call (tiny-synth), and edges: the threads' copies
+        # (Cp 1, 127, 129), every query count, hd 128, caches in stages
+        ("decode_self_attention_q8@512", lambda t: _self8_case(
+            torch, K, 16, 20, 1, 64, 512, 300, bf16, flush, t), True),
+        ("decode_self_attention_q8@spine", lambda t: _self8_case(
+            torch, K, 1, 4, 1, 32, 128, 9, f32, flush, t), True),
+        *[("decode_self_attention_q8", (lambda M, hd, Cp, n: lambda t:
+            _self8_case(torch, K, 2, 3, M, hd, Cp, n, bf16, flush, t))(
+                M, hd, Cp, n), False)
+          for M, hd, Cp, n in ((1, 64, 1, 1), (8, 32, 127, 0),
+                               (5, 64, 129, 129), (8, 128, 448, 448),
+                               (2, 64, 512, 1), (8, 128, 2048, 2000))],
         # the beam phase's decode step: K = 5 beams of 16 windows
         ("decode_cross_attention_q8@beam", lambda t: _cross_case(
             torch, K, 16, 20, BEAM, 64, 1500, bf16, flush, t), True),
@@ -758,6 +776,12 @@ def phase_kernels(torch, K) -> dict:
         "decode_cross_attention_q4 at (16, 20, 1, 64), Ta 1500, per call "
         "(the capacity profile)":
             agg(large["decode_cross_attention_q4@capacity"], [1]),
+        "decode_self_attention_q8 at (16, 20, 1, 64), Cp 512, per call "
+        "(the capacity profile at Whisper's longest cache)":
+            agg(large[SELF8 + "@512"], [1]),
+        "decode_self_attention_q8 at (1, 4, 1, 32), Cp 128, f32, per call "
+        "(the spine's int8+dec4+skv8 profile)":
+            agg(large[SELF8 + "@spine"], [1]),
         "decode_cross_attention_q8 at (16, 20, 8, 64), Ta 1500, per call "
         "(a speculative verify block)":
             agg(large["decode_cross_attention_q8@verify"], [1]),
@@ -1125,10 +1149,12 @@ def trace_steps(torch, step, steps: int = 8, top: int = 6) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    # the weight-quantized matmuls (csrc/wq_matmul.cuh) and the decode
-    # cross-attention (csrc/decode_cross.cuh): one launch a call each
+    # the weight-quantized matmuls (csrc/wq_matmul.cuh), the decode
+    # cross-attention (csrc/decode_cross.cuh) and self-attention
+    # (csrc/decode_self_q8.cu): one launch a call each
     mm = [e for e in kernels if "wq_kernel" in e.name]
     xa = [e for e in kernels if "cross_kernel" in e.name]
+    sa = [e for e in kernels if "self_q8_kernel" in e.name]
     return {"steps": steps, "decode_ms_per_step": host_ms / steps,
             "wq_matmul_device_ms_per_step": sum(
                 e.time_range.elapsed_us() for e in mm) / 1e3 / steps,
@@ -1136,6 +1162,9 @@ def trace_steps(torch, step, steps: int = 8, top: int = 6) -> dict:
             "cross_attention_device_ms_per_step": sum(
                 e.time_range.elapsed_us() for e in xa) / 1e3 / steps,
             "cross_attention_launches_per_step": len(xa) / steps,
+            "self_attention_device_ms_per_step": sum(
+                e.time_range.elapsed_us() for e in sa) / 1e3 / steps,
+            "self_attention_launches_per_step": len(sa) / steps,
             "traced_host_ms_per_step": traced_ms / steps,
             "device_busy_ms_per_step": (busy_ms / steps if kernels
                                         else "not measured"),
@@ -1472,7 +1501,7 @@ def main() -> None:
         if rep["log"]:
             print(f"--- nvcc {name} ({rep['seconds']:.1f} s)\n{rep['log']}")
     if "build" in phases:
-        for name in (FLASH, CROSS8, CROSS4):
+        for name in (FLASH, CROSS8, CROSS4, SELF8):
             print(f"{name} sass", json.dumps(sass_census(K, name)),
                   flush=True)
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's decode cross-attention kernels at the main path's calls,
-this tree's kernels against another tree's, in turns on one card.
+"""Time the port's decode cross- and self-attention kernels at the main
+path's calls, this tree's kernels against another tree's, in turns on one
+card.
 
     python3 scripts/bench_cross.py [--parent DIR] [--rounds 2]
 
@@ -35,6 +36,13 @@ CALLS = [
     (4, 16, 20, 8, 64, "a speculative verify block"),
 ]
 TA = 1500
+#: (B, H, M, hd, Cp, n_valid, q dtype, the path that makes the call)
+SELF_CALLS = [
+    (16, 20, 1, 64, 256, 40, "bfloat16", "capacity"),
+    (16, 20, 1, 64, 512, 300, "bfloat16", "capacity at Whisper's longest "
+     "cache"),
+    (1, 4, 1, 32, 128, 9, "float32", "spine int8+dec4+skv8"),
+]
 
 
 def load_kernels(root: Path, tag: str):
@@ -58,6 +66,21 @@ def inputs(torch, bits, B, H, M, hd):
     return q, k, v, ks, vs
 
 
+def self_inputs(torch, B, H, M, hd, Cp, n_valid, dtype):
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn((B, H, M, hd), generator=g, device="cuda").to(
+        getattr(torch, dtype))
+    k8, v8 = (torch.randint(-127, 128, (B, H, hd, Cp), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    sc = torch.zeros((B, Cp, 128), device="cuda")
+    sc[:, :, :2 * H] = torch.rand((B, Cp, 2 * H), generator=g,
+                                  device="cuda") * 0.02 + 0.001
+    sc[:, :, 2 * H] = torch.where(torch.arange(Cp, device="cuda") < n_valid,
+                                  0.0, -1e30)
+    return q, k8, v8, sc
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, default=None)
@@ -76,18 +99,40 @@ def main() -> None:
     if args.parent is not None:
         trees["parent"] = load_kernels(args.parent.resolve(), "parent")
     names = ["decode_cross_attention_q8", "decode_cross_attention_q4"]
+    self_name = "decode_self_attention_q8"
     for mod in trees.values():
-        mod.build(names)
+        mod.build([*names, self_name])
     order = (["parent", "change", "change", "parent"] if "parent" in trees
              else ["change", "change"])
     print(cs.card_line(), flush=True)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    summary = []
+    calls = []  # (kernel, inputs, shape, path, bytes, flops)
     for bits, B, H, M, hd, path in CALLS:
-        name = names[0] if bits == 8 else names[1]
-        args_ = inputs(torch, bits, B, H, M, hd)
+        rows = hd if bits == 8 else hd // 2
+        calls.append((
+            names[0] if bits == 8 else names[1],
+            lambda bits=bits, B=B, H=H, M=M, hd=hd: inputs(
+                torch, bits, B, H, M, hd),
+            [B, H, M, hd, TA], path,
+            B * H * M * hd * 2 + 2 * B * H * rows * TA
+            + (8 * B * H if bits == 8 else 8 * B * H * hd)
+            + 4 * B * H * M * hd, 4 * B * H * M * hd * TA))
+    for B, H, M, hd, Cp, n_valid, dtype, path in SELF_CALLS:
+        qbytes = 2 if dtype == "bfloat16" else 4
+        calls.append((
+            self_name,
+            lambda c=(B, H, M, hd, Cp, n_valid, dtype): self_inputs(
+                torch, *c),
+            [B, H, M, hd, Cp], path,
+            # the packed operand's lanes the function reads: [0, 2H]
+            B * H * M * hd * qbytes + 2 * B * H * hd * Cp
+            + 4 * B * Cp * (2 * H + 1) + 4 * B * H * M * hd,
+            4 * B * H * M * hd * Cp))
+    summary = []
+    for name, make, shape, path, nbytes, flops in calls:
+        args_ = make()
         ref = getattr(trees["change"], name + "_plain")(*args_)
-        row = {"kernel": name, "shape": [B, H, M, hd, TA], "path": path}
+        row = {"kernel": name, "shape": shape, "path": path}
         for tree in trees:
             fn = getattr(trees[tree], name)
             err = (fn(*args_) - ref).abs().max().item()
@@ -97,12 +142,7 @@ def main() -> None:
                 fn = getattr(trees[tree], name)
                 row.setdefault(f"{tree}_ms", []).append(cs.time_ms(
                     torch, lambda: fn(*args_), flush=flush))
-        nbytes = (B * H * M * hd * 2 + 2 * B * H * (hd if bits == 8 else
-                                                    hd // 2) * TA
-                  + (8 * B * H if bits == 8 else 8 * B * H * hd)
-                  + 4 * B * H * M * hd)
-        row["bound_ms"], row["bound_by"] = cs.bound_ms(
-            nbytes, 4 * B * H * M * hd * TA, "bf16")
+        row["bound_ms"], row["bound_by"] = cs.bound_ms(nbytes, flops, "bf16")
         print(json.dumps(row), flush=True)
         summary.append(row)
     print("summary", json.dumps([

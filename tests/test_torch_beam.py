@@ -25,6 +25,14 @@ SYNTH = jw.WHISPER_PRESETS["tiny-synth"]
 HELD_OUT = ["the quick model learns fast", "hybrid search finds words"]
 
 
+def _jax_q8(jp, dims, bits=8, lm_head_bits=None):
+    """The JAX backend's quantized decoder tree: ``quantize_decoder_weights``
+    under ``jax.jit``, as its ASR backend runs it at load (XLA turns the
+    scales' division by 127 or 7 into a product with the reciprocal)."""
+    return jax.jit(lambda p: jw.quantize_decoder_weights(
+        p, dims, bits, lm_head_bits=lm_head_bits))(jp)
+
+
 def _prompt(dims, n):
     st = jw.SpecialTokens.for_dims(dims)
     return np.array([[st.sot, st.lang_base, st.transcribe,
@@ -270,9 +278,7 @@ def _jax_beam(synth, profile):
         memo[profile] = np.asarray(jw.beam_decode(
             jp, SYNTH, jnp.asarray(enc), jnp.asarray(_prompt(SYNTH, 2)),
             MAX_NEW, st.eot, beam_size=5, dtype=jnp.float32,
-            decoder_q8=(jw.quantize_decoder_weights(jp, SYNTH, dec,
-                                                    lm_head_bits=lm)
-                        if dec else None),
+            decoder_q8=_jax_q8(jp, SYNTH, dec, lm) if dec else None,
             cross_kv_quantize=kv > 0, cross_kv_bits=kv or 8,
             reorder="onehot"))
     return memo[profile]

@@ -402,6 +402,135 @@ def test_self_q8_rejects_bad_input(no_launches):
                                                dtype=torch.int8), sc)
 
 
+# every cache the port sends: Whisper's self caches pad to a multiple of 128
+# (n_text_ctx 448 → 512), heads of 32 (tiny-synth), 64 (large-v3) and 128;
+# Cp 2048 and an unpadded 448 beyond them
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("Cp", [128, 256, 384, 448, 512, 2048])
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+def test_self_plan_covers_the_call(hd, Cp, M):
+    """Every port shape: K and V in 16-row slices, each one bulk copy of
+    16·Cp bytes that starts at a multiple of 16 from a 16-byte-aligned base,
+    every slice in flight from the block's start wherever Whisper's caches
+    (Cp ≤ 512) go with one query a row (the port's call) and wherever the
+    slices fit; else two slots of a multiple of 16 rows dividing hd; score
+    rows that the P.V lanes split evenly; the slots, the scores, the
+    columns and q's pieces fit shared memory."""
+    p = K.self_plan(hd, Cp, M)
+    assert p.bulk and p.ldk == Cp
+    lanes = 4 * 256 // hd
+    assert p.ldp % lanes == 0 and p.ldk <= p.ldp < p.ldk + lanes
+    whole = p.slots == 2 * p.stages
+    if Cp <= 512 and (M == 1 or hd <= 64):
+        assert whole
+    assert p.rows == 16 if whole else (p.slots == 2 and p.rows % 16 == 0)
+    assert p.stages * p.rows == hd
+    assert all((bh * hd + p.rows * stage) * Cp % 16 == 0
+               and p.rows * Cp % 16 == 0
+               for bh in (0, 1, 319) for stage in range(p.stages))
+    parts = 4 * hd // 16 * M * p.ldp if whole and M > 4 else 0
+    assert p.smem == (p.slots * p.rows * p.ldk + K.SELF_SLACK + parts
+                      + 8 * M * p.ldp + 12 * p.ldp + 3 * M * hd)
+    assert p.smem <= K.SELF_SMEM_MAX
+
+
+def test_self_plan_refuses_what_the_kernel_cannot_take():
+    """A base off 16 bytes or Cp % 16 != 0 leaves the bulk copies for the
+    threads' copies into word-multiple rows; M outside 1–8, head dims other
+    than 16, 32, 64 and 128, and caches whose slots, scores and columns
+    outgrow shared memory raise."""
+    assert not K.self_plan(64, 256, 1, aligned=False).bulk
+    for Cp in (1, 127, 129, 130):
+        p = K.self_plan(64, Cp, 1)
+        assert not p.bulk and p.ldk % 4 == 0 and Cp <= p.ldk < Cp + 4
+    for M in (0, 9):
+        with pytest.raises(ValueError, match="queries per row"):
+            K.self_plan(64, 256, M)
+    for hd in (8, 40, 80, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            K.self_plan(hd, 256, 1)
+    assert K.self_plan(64, 2128, 8).rows == 16
+    assert K.self_plan(64, 4432, 1).rows == 16
+    for M, Cp in ((8, 2144), (1, 4448)):
+        with pytest.raises(ValueError, match="shared memory"):
+            K.self_plan(64, Cp, M)
+
+
+def _self_integer_design(q, k8, v8, sc):
+    """The self kernel's arithmetic on the CPU: q/sqrt(hd) as a 23-bit
+    fixed-point integer per query (the largest |value| within [2^21,
+    2^22)), exact integer scores per 16-row slice made f32 as the kernel's
+    FMA chain of its three pieces does, added in slice order, scaled and
+    masked in f32; p * vs / max|vs| as round(2^22 x), an exact integer P.V,
+    one scaling in f64 to f32. (dp4a's sums are exact integers, so only the
+    f32 steps can differ from the card, by their rounding.)"""
+    B, H, M, hd = q.shape
+    f32 = torch.float32
+    qf = q.float() * hd ** -0.5
+    amax = qf.abs().amax(-1, keepdim=True)
+    ex = torch.frexp(amax)[1] - 1  # amax in [2^ex, 2^(ex + 1))
+    sh = torch.where(amax > 0, torch.clamp(21 - ex, max=126),
+                     torch.zeros_like(ex))
+    qi = torch.round(torch.ldexp(qf, sh.to(f32))).long()
+    pieces = (qi >> 16, (qi >> 8) & 255, qi & 255)
+    kk = k8.long()
+    s = torch.zeros(B, H, M, kk.shape[-1], dtype=f32)
+    for lo in range(0, hd, 16):  # a slice: 16 rows
+        p0, p1, p2 = (torch.matmul(pc[..., lo:lo + 16], kk[..., lo:lo + 16, :])
+                      .double() for pc in pieces)
+        inner = (p1 * 256 + p2).to(f32).double()
+        s = s + (p0 * 65536 + inner).to(f32)
+    ks = sc[:, :, :H].transpose(1, 2)[:, :, None, :]  # (B, H, 1, Cp)
+    vs = sc[:, :, H:2 * H].transpose(1, 2)[:, :, None, :]
+    mask = sc[:, None, None, :, 2 * H]
+    s = s * torch.ldexp(torch.ones(1), -sh.to(f32)) * ks + mask
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    vmax = vs.abs().amax(-1, keepdim=True)
+    pi = torch.round(e * vs * (4194304.0 / vmax)).long()
+    num = torch.matmul(pi, v8.long().transpose(-1, -2)).double()
+    return (num * vmax.double() / (4194304.0 * e.sum(-1, keepdim=True)
+                                   .double())).to(f32)
+
+
+@pytest.mark.parametrize("B,H,M,hd,Cp,n_valid,dtype", [
+    (2, 4, 1, 32, 128, 37, torch.float32),
+    (1, 3, 1, 64, 256, 40, torch.bfloat16),
+    (1, 2, 5, 64, 448, 448, torch.float32),
+    (1, 2, 8, 128, 512, 1, torch.bfloat16),
+    (1, 2, 1, 64, 2048, 2000, torch.bfloat16),
+    (1, 2, 2, 32, 1, 0, torch.float32),
+    (1, 2, 8, 16, 129, 129, torch.float32),
+])
+def test_self_integer_design_meets_the_tolerance(B, H, M, hd, Cp, n_valid,
+                                                 dtype):
+    """The integer design's arithmetic, replayed on the CPU, agrees with the
+    plain version within the card tests' unchanged tolerance (atol 1e-5,
+    rtol 1e-5), masked positions, one valid position and none included."""
+    g = torch.Generator().manual_seed(10)
+    q = torch.randn((B, H, M, hd), generator=g).to(dtype)
+    k8, v8 = (torch.randint(-127, 128, (B, H, hd, Cp), generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    sc = torch.zeros((B, Cp, 128))
+    sc[:, :, :2 * H] = torch.rand((B, Cp, 2 * H), generator=g) * 0.02 + 0.001
+    sc[:, :, 2 * H] = torch.where(torch.arange(Cp) < n_valid, 0.0, -1e30)
+    torch.testing.assert_close(_self_integer_design(q, k8, v8, sc),
+                               K.decode_self_attention_q8_plain(q, k8, v8, sc),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_self_kernel_byte_conversions_are_exact():
+    """The kernel's two conversions of an int8 value to f32 without I2F,
+    replayed on the bits: a signed byte under the exponent of 2^23 + 2^22
+    by an integer add, less 12582912; and a byte XORed with 0x80 placed
+    under the exponent of 2^23 (the PRMT with 0x4B000000), less 2^23 + 128.
+    Both give every int8 value exactly."""
+    b = np.arange(-128, 128, dtype=np.int32)
+    added = (b + 0x4B400000).astype(np.int32).view(np.float32)
+    np.testing.assert_array_equal(added - np.float32(12582912.0), b)
+    biased = ((b.astype(np.uint32) ^ 0x80) & 0xFF) | np.uint32(0x4B000000)
+    np.testing.assert_array_equal(
+        biased.view(np.float32) - np.float32(8388736.0), b)
+
 # -- the launch plan of the weight-quantized matmuls ------------------------------
 
 _LARGE_V3 = [(1280, 1280, 80), (1280, 5120, 80), (5120, 1280, 128),

@@ -386,22 +386,81 @@ def _self_inputs(g, B, H, M, hd, Cp, n_valid, dtype, device):
     return q, k8, v8, sc
 
 
+# the self kernel: Cp around the 4-byte words, the 16-byte bulk copies and
+# the 256 threads (1, 127, 129 take the threads' copies), M 1, 2, 5, 8,
+# hd 32, 64, 128 and n_valid 0, 1, Cp in turn, both q dtypes, at B·H = 1;
+# the capacity profile's width at B·H = 320; long caches in stages
+_SELF_EDGES = [(1, 1, M, (32, 64, 128)[(i + j) % 3], Cp,
+                (0, 1, Cp)[(i + 2 * j) % 3],
+                (torch.float32, torch.bfloat16)[j % 2])
+               for i, Cp in enumerate((1, 127, 128, 129, 256, 448, 512, 2048))
+               for j, M in enumerate((1, 2, 5, 8))]
+_SELF_WIDE = [(16, 20, M, 64, Cp, n, dtype)
+              for M in (1, 8) for Cp, n in ((256, 40), (448, 448), (512, 1))
+              for dtype in (torch.float32, torch.bfloat16)]
+_SELF_LONG = [(2, 3, 8, 128, 2048, 2000, torch.bfloat16),  # two slots
+              (1, 2, 8, 64, 2128, 2128, torch.float32),    # the plan's limit
+              (1, 2, 1, 64, 4432, 4000, torch.bfloat16)]
+
+
+def _check_self(q, k8, v8, sc):
+    """One launch, finite, within the unchanged tolerance of the plain
+    version (f32 throughout; sums over Cp positions in another order, the V
+    scales applied before the normaliser instead of after), and the same
+    bits from a second call."""
+    name = "decode_self_attention_q8"
+    got = _launched(name, lambda: K.decode_self_attention_q8(q, k8, v8, sc))
+    ref = K.decode_self_attention_q8_plain(q, k8, v8, sc)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    again = _launched(name, lambda: K.decode_self_attention_q8(q, k8, v8, sc))
+    assert torch.equal(_bits(again), _bits(got))
+
+
 @pytest.mark.parametrize("B,H,M,hd,Cp,n_valid,dtype", [
     (2, 4, 1, 32, 128, 37, torch.float32),
     (3, 5, 2, 64, 130, 100, torch.bfloat16),  # Cp not a multiple of 4
     (1, 4, 1, 32, 128, 0, torch.float32),     # no valid position: finite
     (16, 20, 1, 64, 256, 40, torch.bfloat16),
+    (1, 1, 3, 16, 200, 150, torch.float32),   # hd 16: 16 lanes a V row
+    (2, 3, 8, 16, 1, 1, torch.bfloat16),
+    *_SELF_EDGES, *_SELF_WIDE, *_SELF_LONG,
 ])
 def test_self_q8_kernel_on_card(cuda, B, H, M, hd, Cp, n_valid, dtype):
-    """f32 throughout; sums over Cp positions in another order, the V
-    scales applied before the normaliser instead of after."""
     g = torch.Generator(device=cuda).manual_seed(6)
-    args = _self_inputs(g, B, H, M, hd, Cp, n_valid, dtype, cuda)
-    got = _launched("decode_self_attention_q8",
-                    lambda: K.decode_self_attention_q8(*args))
-    ref = K.decode_self_attention_q8_plain(*args)
-    assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    _check_self(*_self_inputs(g, B, H, M, hd, Cp, n_valid, dtype, cuda))
+
+
+@pytest.mark.parametrize("M,Cp", [(1, 256), (5, 512), (8, 2048)])
+def test_self_kernel_takes_unaligned_views(cuda, M, Cp):
+    """K and V one byte past a 16-byte boundary: the plan leaves the bulk
+    copies for the threads' copies, decided by the layout alone."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k8, v8, sc = _self_inputs(g, 4, 20, M, 64, Cp, Cp - 3,
+                                 torch.bfloat16, cuda)
+    k8, v8 = _unaligned(k8), _unaligned(v8)
+    assert k8.data_ptr() % 16 and v8.data_ptr() % 16
+    assert not K.self_plan(64, Cp, M, aligned=False).bulk
+    _check_self(q, k8, v8, sc)
+
+
+def test_self_kernel_refuses_what_the_plan_refuses(cuda):
+    """More than 8 queries a row, a head dim other than 16, 32, 64 or 128,
+    and slots, scores and columns past shared memory raise before any
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    name = "decode_self_attention_q8"
+    n = K.LAUNCHES[name]
+    with pytest.raises(ValueError, match="≤ 8"):
+        K.decode_self_attention_q8(*_self_inputs(g, 1, 2, 9, 64, 256, 9,
+                                                 torch.float32, cuda))
+    with pytest.raises(ValueError, match="head dim"):
+        K.decode_self_attention_q8(*_self_inputs(g, 1, 2, 1, 40, 256, 9,
+                                                 torch.float32, cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        K.decode_self_attention_q8(*_self_inputs(g, 1, 2, 8, 64, 2144, 9,
+                                                 torch.float32, cuda))
+    assert K.LAUNCHES[name] == n
 
 
 def test_new_kernels_refuse_what_they_do_not_take(cuda):

@@ -2,6 +2,7 @@
 against the JAX package's ``models/layers.py`` at f32 on the CPU, on the same
 seeded numpy inputs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,14 +120,21 @@ def test_masks_and_positions_match_jax():
                                   jl.sinusoid_positions(300, 128))
 
 
-def test_quantize_linear_is_bit_exact():
-    """Same rounding (half to even) and clipping: identical int8 values and
-    scales, ties included (columns whose values sit on .5 steps)."""
+@pytest.mark.parametrize("din,dout", [(64, 96), (1280, 1280)])
+def test_quantize_linear_is_bit_exact(din, dout):
+    """Same rounding (half to even) and clipping as the JAX function run
+    under ``jax.jit``, as the backend runs it (the scale a product with the
+    f32 reciprocal of 127): identical int8 values and scales, ties included
+    (columns whose values sit on .5 steps). At 1280×1280 the jitted scales
+    differ from an eager call's, so the case tells the two apart."""
     rng = np.random.default_rng(4)
-    w = (rng.standard_normal((64, 96)) * 0.3).astype(np.float32)
-    w[:, 0] = np.arange(64) - 31.5          # amax 32.5: many exact .5 ratios
+    w = (rng.standard_normal((din, dout)) * 0.3).astype(np.float32)
+    w[:, 0] = np.arange(din) % 64 - 31.5    # amax 32.5: many exact .5 ratios
     w[:, 1] = 0.0                           # all-zero column: the 1e-9 floor
-    ref = jl.quantize_linear(jnp.asarray(w))
+    ref = jax.jit(jl.quantize_linear)(jnp.asarray(w))
+    if din == 1280:
+        eager = jl.quantize_linear(jnp.asarray(w))
+        assert (np.asarray(eager["s"]) != np.asarray(ref["s"])).any()
     got = tl.quantize_linear(torch.from_numpy(w))
     assert got["w8"].dtype == torch.int8 and got["s"].dtype == torch.float32
     np.testing.assert_array_equal(_np(got["w8"]), np.asarray(ref["w8"]))
@@ -151,15 +159,22 @@ def test_linear_q8_is_the_tpu_kernels_function():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("din,dout", [(128, 96), (1280, 24), (48, 40)])
+@pytest.mark.parametrize("din,dout", [(128, 96), (1280, 24), (48, 40),
+                                      (1280, 1280)])
 def test_quantize_linear_q4_is_bit_exact(din, dout):
     """Same groups, rounding (half to even), clipping and row-pair nibble
-    packing: identical packed bytes and scales, ties included."""
+    packing as the JAX function run under ``jax.jit``, as the backend runs
+    it (the scale a product with the f32 reciprocal of 7): identical packed
+    bytes and scales, ties included. At 1280×1280 the jitted scales differ
+    from an eager call's, so the case tells the two apart."""
     rng = np.random.default_rng(6)
     w = (rng.standard_normal((din, dout)) * 0.3).astype(np.float32)
     w[:, 0] = (np.arange(din) % 16 - 7.5)   # many exact .5 ratios to 7
     w[:, 1] = 0.0                           # all-zero groups: the 1e-9 floor
-    ref = jl.quantize_linear_q4(jnp.asarray(w))
+    ref = jax.jit(jl.quantize_linear_q4)(jnp.asarray(w))
+    if (din, dout) == (1280, 1280):
+        eager = jl.quantize_linear_q4(jnp.asarray(w))
+        assert (np.asarray(eager["s"]) != np.asarray(ref["s"])).any()
     got = tl.quantize_linear_q4(torch.from_numpy(w))
     assert got["w4"].dtype == torch.int8 and got["s"].dtype == torch.float32
     np.testing.assert_array_equal(_np(got["w4"]), np.asarray(ref["w4"]))

@@ -22,6 +22,14 @@ ST = jw.SpecialTokens.for_dims(DIMS)
 HELD_OUT = ["the quick model learns fast", "hybrid search finds words"]
 
 
+def _jax_q8(jp, dims, bits=8, lm_head_bits=None):
+    """The JAX backend's quantized decoder tree: ``quantize_decoder_weights``
+    under ``jax.jit``, as its ASR backend runs it at load (XLA turns the
+    scales' division by 127 or 7 into a product with the reciprocal)."""
+    return jax.jit(lambda p: jw.quantize_decoder_weights(
+        p, dims, bits, lm_head_bits=lm_head_bits))(jp)
+
+
 @pytest.fixture(scope="module")
 def setup():
     """The JAX package's seeded "test" model carried over, the encoder
@@ -65,7 +73,7 @@ def test_block_verify_matches_jax(setup, quant):
     block = rng.integers(0, DIMS.n_vocab - 10, (3, k))
     pos = np.array([4, 9, 18])
     q = quant == "int8"
-    jq8 = jw.quantize_decoder_weights(jp, DIMS) if q else None
+    jq8 = _jax_q8(jp, DIMS) if q else None
     ref, (rk, rv) = jw.decoder_block_verify(
         jp, DIMS, jnp.asarray(block, jnp.int32),
         jw.precompute_cross_kv(jp, DIMS, jnp.asarray(enc), jnp.float32,
@@ -173,9 +181,7 @@ def test_speculative_matches_jax_on_trained_model(synth, profile):
         jp, dims, jnp.asarray(enc), jnp.asarray(prompt), 112, st.eot,
         spec_k=8, dtype=jnp.float32, no_speech_id=st.no_speech,
         cross_kv_quantize=kv > 0, cross_kv_bits=kv or 8,
-        decoder_q8=(jw.quantize_decoder_weights(jp, dims, dec,
-                                                lm_head_bits=lm)
-                    if dec else None))
+        decoder_q8=_jax_q8(jp, dims, dec, lm) if dec else None)
     gt, glp, gns, steps = tw.speculative_greedy_decode(
         tp, tdims, torch.from_numpy(enc), torch.from_numpy(prompt).long(),
         112, st.eot, spec_k=8, dtype=torch.float32,

@@ -58,6 +58,14 @@ def encoded(models, mel):
     return jenc, tenc
 
 
+def _jax_q8(jp, dims, bits=8, lm_head_bits=None):
+    """The JAX backend's quantized decoder tree: ``quantize_decoder_weights``
+    under ``jax.jit``, as its ASR backend runs it at load (XLA turns the
+    scales' division by 127 or 7 into a product with the reciprocal)."""
+    return jax.jit(lambda p: jw.quantize_decoder_weights(
+        p, dims, bits, lm_head_bits=lm_head_bits))(jp)
+
+
 def _prompt(n):
     st = jw.SpecialTokens.for_dims(DIMS)
     return np.array([[st.sot, st.lang_base, st.transcribe,
@@ -165,8 +173,7 @@ def test_int4_cross_kv_is_bit_exact():
 
 def test_int8_decoder_tree_is_bit_exact(models):
     jp, tp = models
-    ref = whisper_q8_params(jax.tree.map(np.asarray,
-                                         jw.quantize_decoder_weights(jp, DIMS)),
+    ref = whisper_q8_params(jax.tree.map(np.asarray, _jax_q8(jp, DIMS)),
                             TDIMS, "cpu")
     got = tw.quantize_decoder_weights(tp, TDIMS)
     assert len(got["blocks"]) == DIMS.n_text_layer
@@ -188,8 +195,8 @@ def test_int4_and_mixed_decoder_trees_are_bit_exact(models, bits,
     """The all-int4 tree and the int8-blocks + int4-head tree carry the
     JAX package's packed bytes and scales exactly."""
     jp, tp = models
-    ref = whisper_q8_params(jax.tree.map(np.asarray, jw.quantize_decoder_weights(
-        jp, DIMS, bits, lm_head_bits=lm_head_bits)), TDIMS, "cpu")
+    ref = whisper_q8_params(jax.tree.map(np.asarray, _jax_q8(
+        jp, DIMS, bits, lm_head_bits)), TDIMS, "cpu")
     got = tw.quantize_decoder_weights(tp, TDIMS, bits, lm_head_bits)
     assert set(got["logits"]) == {"w4", "s"}
     assert set(got["blocks"][0]["mlp_up"]) == ({"w4", "s"} if bits == 4
@@ -208,13 +215,19 @@ def test_int4_and_mixed_decoder_trees_are_bit_exact(models, bits,
 def test_self_cache_quantization_is_bit_exact():
     """``quantize_self_cache`` (per-position scales, the pad to a multiple
     of 128, the packed scales + mask operand) and ``pack_self_scales``
-    give the JAX package's arrays exactly."""
+    give the JAX package's arrays exactly, as the backend computes them:
+    under ``jax.jit`` (the primed cache is quantized inside its compiled
+    decode, where the scale is a product with the f32 reciprocal of 127).
+    On this input the jitted scales differ from an eager call's."""
     rng = np.random.default_rng(8)
     L, B, H, C, hd = 2, 3, 4, 20, 32
     sk, sv = (rng.standard_normal((L, B, H, C, hd)).astype(np.float32)
               for _ in range(2))
     sk[0, 0, 0, 3] = 0.0  # an all-zero position: scale 1
-    ref = jw.quantize_self_cache(jnp.asarray(sk), jnp.asarray(sv), 7)
+    ref = jax.jit(jw.quantize_self_cache, static_argnums=2)(
+        jnp.asarray(sk), jnp.asarray(sv), 7)
+    eager = jw.quantize_self_cache(jnp.asarray(sk), jnp.asarray(sv), 7)
+    assert (np.asarray(eager[2]) != np.asarray(ref[2])).any()
     got = tw.quantize_self_cache(torch.from_numpy(sk), torch.from_numpy(sv),
                                  7)
     assert got[0].shape == (L, B, H, hd, 128) and got[2].shape == (
@@ -244,14 +257,14 @@ def test_decoder_step_on_int8_self_cache_matches_jax(models, encoded):
     st = jw.SpecialTokens.for_dims(DIMS)
     jkv = jw.precompute_cross_kv(jp, DIMS, jnp.asarray(jenc), jnp.float32,
                                  quantize=True, bits=4)
-    jq8 = jw.quantize_decoder_weights(jp, DIMS, 4)
+    jq8 = _jax_q8(jp, DIMS, 4)
     jcache = (jnp.zeros((DIMS.n_text_layer, 2, DIMS.n_text_head, 20, 32),
                         jnp.float32),) * 2
     toks = np.array([[st.sot, 5, 9, 12], [st.sot, 6, 10, 13]], np.int32)
     for t in range(2):  # prime two positions in the bf16/f32 cache
         _, jcache = jw.decoder_step(jp, DIMS, jnp.asarray(toks[:, t:t + 1]),
                                     jkv, t, jcache, jnp.float32, q8=jq8)
-    jcache = jw.quantize_self_cache(*jcache, 2)
+    jcache = jax.jit(jw.quantize_self_cache, static_argnums=2)(*jcache, 2)
     tkv = whisper_cross_kv(jax.tree.map(np.asarray, jkv), TDIMS)
     tq8 = whisper_q8_params(jax.tree.map(np.asarray, jq8), TDIMS)
     tcache = whisper_self_cache_q8(jax.tree.map(np.asarray, jcache), TDIMS)
@@ -298,13 +311,14 @@ def test_greedy_decode_matches_jax(models, encoded, profile):
     kv_bits, dec_bits, lm_bits, skv8, words = PROFILES[profile]
     q = dec_bits > 0
     prompt = _prompt(2)
-    jt, jlp, jns = jw.greedy_decode(
-        jp, DIMS, jnp.asarray(jenc), jnp.asarray(prompt), 112, st.eot,
-        dtype=jnp.float32, no_speech_id=st.no_speech,
-        cross_kv_quantize=kv_bits > 0, cross_kv_bits=kv_bits or 8,
-        decoder_q8=jw.quantize_decoder_weights(
-            jp, DIMS, dec_bits, lm_head_bits=lm_bits) if q else None,
-        self_kv_int8=skv8)
+    # under jax.jit, as the backend runs it (the primed self cache is
+    # quantized inside the compiled decode)
+    jt, jlp, jns = jax.jit(lambda p, q8, enc, pr: jw.greedy_decode(
+        p, DIMS, enc, pr, 112, st.eot, dtype=jnp.float32,
+        no_speech_id=st.no_speech, cross_kv_quantize=kv_bits > 0,
+        cross_kv_bits=kv_bits or 8, decoder_q8=q8, self_kv_int8=skv8))(
+        jp, _jax_q8(jp, DIMS, dec_bits, lm_bits) if q else None,
+        jnp.asarray(jenc), jnp.asarray(prompt))
     tt, tlp, tns = tw.greedy_decode(
         tp, TDIMS, tenc, torch.from_numpy(prompt).long(), 112, st.eot,
         dtype=torch.float32, no_speech_id=st.no_speech,
