@@ -1,21 +1,29 @@
 """Batched-window Whisper ASR backend of the port.
 
-Counterpart of ``audio_rag_tpu/asr/whisper_jax.py``: decode → slice into
-windows of the model's audio context → log-mel of a window batch → encode →
-decode of all windows of the batch at once → strip special tokens,
-no-speech gate, segments → interpolated word times. The parameters come
-from the committed asset for "tiny-synth" and from a seeded init for the
-other presets; ``compute_type="bfloat16"`` stores and computes in bf16;
+Counterpart of ``audio_rag_tpu/asr/whisper_jax.py``: decode → VAD speech
+spans (``vad_filter``, :mod:`audio_rag_tpu_torch.asr.vad`) → slice each
+span into windows of the model's audio context → log-mel of a window batch
+→ encode → decode of all windows of the batch at once → strip special
+tokens, no-speech gate, segments → with word timestamps, one teacher-forced
+decoder pass over the decoded tokens collecting the head-averaged
+cross-attention of the upper decoder layers, and DTW word times
+(:mod:`audio_rag_tpu_torch.asr.word_timing`) that also widen each segment's
+bounds; segments that get no words take evenly spread ones. The parameters
+come from the committed asset for "tiny-synth" and from a seeded init for
+the other presets; ``compute_type="bfloat16"`` stores and computes in bf16;
 the quantization switches of ``ASRConfig`` pick the decode profile as the
 JAX backend does (int4 beats int8; ``lm_head_int4`` only with
 ``decoder_int8`` and without ``decoder_int4``; ``self_kv_int8``), and with
-it the quantized decode kernels. The decode strategy is chosen as the JAX
-backend's ``_program`` chooses it: beam search under ``decode="beam"``
-(its avg-logprob and no-speech probability are 0, so the no-speech gate
-never drops a window); else speculative greedy under ``speculative_k > 0``
-with a prompt of ≤ 16 tokens; else greedy. Beam and speculative ignore
-``self_kv_int8``. Not ported here: VAD, temperature fallback, language
-detection, conditioning on previous text, DTW word timestamps.
+it the quantized decode kernels; the alignment pass always runs on the
+full-precision weights and unquantized cross K/V, as the JAX backend's
+does. The decode strategy is chosen as the JAX backend's ``_program``
+chooses it: beam search under ``decode="beam"`` (its avg-logprob and
+no-speech probability are 0, so the no-speech gate never drops a window);
+else speculative greedy under ``speculative_k > 0`` with a prompt of ≤ 16
+tokens; else greedy. Beam and speculative ignore ``self_kv_int8``. Not
+ported here: temperature fallback, language detection, conditioning on
+previous text, the HF tokenizer's word map (without one every token is a
+word, as in the JAX backend).
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from audio_rag_tpu_torch.asr.vad import VADOptions, speech_segments
+from audio_rag_tpu_torch.asr.word_timing import attention_to_word_times
 from audio_rag_tpu_torch.audio.io import decode_audio
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
 from audio_rag_tpu_torch.config import ASRConfig
@@ -38,6 +48,8 @@ from audio_rag_tpu_torch.models.whisper import (
     WhisperDims,
     beam_decode,
     char_decode,
+    cross_kv_layer,
+    decoder_forward,
     encode,
     greedy_decode,
     init_whisper,
@@ -57,10 +69,11 @@ class WhisperASR:
     """Batched-window Whisper on one device.
 
     ``timings`` accumulates, per :meth:`transcribe` call, host-clock seconds
-    of the mel, encode and decode stages (each ends in a device
-    synchronize on CUDA), the decode-loop iterations run (greedy steps,
-    beam steps or speculative verify passes) and the windows and batches
-    seen.
+    of the VAD, mel, encode, decode and word-alignment stages (each ends
+    in a device synchronize or a copy to the host on CUDA; ``align_s``
+    is the teacher-forced pass and the host DTW, ``dtw_s`` the DTW
+    alone), the decode-loop iterations run (greedy steps, beam steps or
+    speculative verify passes) and the windows and batches seen.
     """
 
     def __init__(self, config: ASRConfig | None = None,
@@ -139,17 +152,32 @@ class WhisperASR:
                    language: str | None = None) -> list[TranscriptSegment]:
         if not self.is_loaded:
             self.load()
-        self.timings = {"mel_s": 0.0, "encode_s": 0.0, "decode_s": 0.0,
+        self.timings = {"vad_s": 0.0, "mel_s": 0.0, "encode_s": 0.0,
+                        "decode_s": 0.0, "align_s": 0.0, "dtw_s": 0.0,
                         "decode_steps": 0, "windows": 0, "batches": 0}
         wav, sr = decode_audio(audio, sample_rate)
         if wav.size == 0:
             return []
+        c = self.config
+        if c.vad_filter:  # transcribe the speech spans only
+            t0 = time.perf_counter()
+            spans = speech_segments(wav, sr, VADOptions(
+                backend=c.vad_backend, threshold=c.vad_threshold),
+                device=self.device)
+            self.timings["vad_s"] = time.perf_counter() - t0
+            if not spans:
+                return []
+        else:
+            spans = [(0.0, len(wav) / sr)]
+        # windows on integer sample indices, offsets relative to the file
         step = int(round(self.window_seconds * sr))
         windows: list[tuple[float, np.ndarray]] = []
-        for start in range(0, len(wav), step):
-            seg = wav[start: start + step]
-            if seg.size >= int(0.2 * sr):  # skip sub-200ms tails
-                windows.append((start / sr, seg))
+        for s, e in spans:
+            s_idx, e_idx = int(round(s * sr)), int(round(e * sr))
+            for start in range(s_idx, e_idx, step):
+                seg = wav[start: min(start + step, e_idx)]
+                if seg.size >= int(0.2 * sr):  # skip sub-200ms tails
+                    windows.append((start / sr, seg))
         if not windows:
             return []
 
@@ -164,10 +192,12 @@ class WhisperASR:
         pad_to = bs if len(windows) > bs else None
         for i in range(0, len(windows), bs):
             segments.extend(self._transcribe_batch(
-                windows[i: i + bs], lang, lang_off, pad_to))
+                windows[i: i + bs], lang, lang_off, pad_to,
+                want_words=word_timestamps))
         if word_timestamps:
             for seg in segments:
-                seg.words = interpolate_words(seg)
+                if not seg.words:
+                    seg.words = interpolate_words(seg)
         return segments
 
     def transcribe_with_words(self, audio: np.ndarray | str,
@@ -182,8 +212,9 @@ class WhisperASR:
 
     @torch.inference_mode()
     def _transcribe_batch(self, windows: list[tuple[float, np.ndarray]],
-                          lang: str, lang_off: int,
-                          pad_to: int | None) -> list[TranscriptSegment]:
+                          lang: str, lang_off: int, pad_to: int | None,
+                          want_words: bool = False
+                          ) -> list[TranscriptSegment]:
         n_real = len(windows)
         B = max(pad_to or 0, n_real)  # zero windows pad the tail batch
         n_samples = 2 * self.dims.n_audio_ctx * HOP_LENGTH
@@ -201,9 +232,9 @@ class WhisperASR:
         t2 = time.perf_counter()
 
         st = self.tokens
-        prompt = np.tile(np.array([[st.sot, st.lang_base + lang_off,
-                                    st.transcribe, st.no_timestamps]],
-                                  np.int64), (B, 1))
+        prompt = np.tile(np.array([[st.sot, st.lang_base, st.transcribe,
+                                    st.no_timestamps]], np.int64), (B, 1))
+        prompt[:n_real, 1] += lang_off  # per-row language (pad rows: en)
         P = prompt.shape[1]
         toks, avg_lp, no_speech, steps = self._decode(
             enc, torch.from_numpy(prompt).to(self.device))
@@ -221,7 +252,21 @@ class WhisperASR:
         # Whisper's no-speech gate: high p(no_speech) AND low confidence
         silent = ((no_speech > self.config.no_speech_threshold)
                   & (avg_lp < self.config.logprob_threshold))
+
+        # word times: one teacher-forced pass over every real row's text
+        # tokens (pad rows stay empty so that they do not widen the token
+        # bucket), silent rows included, as in the JAX backend
+        weights, clean = None, []
+        if want_words:
+            t4 = time.perf_counter()
+            for j in range(B):
+                ids = self._strip_special(tokens[j], P) if j < n_real else []
+                clean.append([i for i in ids if i < st.timestamp_base])
+            weights = self._collect_cross_weights(enc, prompt, clean)
+            self.timings["align_s"] += time.perf_counter() - t4
+
         out: list[TranscriptSegment] = []
+        dtw_before = self.timings["dtw_s"]
         for j, (t0w, seg_audio) in enumerate(windows):
             if silent[j]:
                 continue
@@ -230,8 +275,74 @@ class WhisperASR:
             segs = self._tokens_to_segments(text_ids, t0w, dur, lang)
             for s in segs:
                 s.avg_logprob = round(float(avg_lp[j]), 4)
+            if weights is not None and segs:
+                t4 = time.perf_counter()
+                self._apply_word_times(segs, weights[j], clean[j], dur, t0w,
+                                       prompt_len=P)
+                self.timings["dtw_s"] += time.perf_counter() - t4
             out.extend(segs)
+        self.timings["align_s"] += self.timings["dtw_s"] - dtw_before
         return out
+
+    @torch.inference_mode()
+    def _collect_cross_weights(self, enc: torch.Tensor, prompt: np.ndarray,
+                               clean: list[list[int]]) -> np.ndarray | None:
+        """Teacher-forced decoder pass over the already computed encoder
+        states → (B, T, Ta) f32 head-averaged cross weights of the upper
+        layers, read back through float16 as the JAX backend reads them.
+
+        The tokens are the prompt and each row's text tokens, padded with
+        EOT to a power of two (at most ``n_text_ctx − P``). Each layer's
+        cross K/V are computed from ``enc`` inside the layer loop, in the
+        compute dtype with the full-precision weights, whatever the decode
+        profile."""
+        max_t = max((len(c) for c in clean), default=0)
+        if max_t == 0:
+            return None
+        P = prompt.shape[1]
+        max_t = min(1 << (max_t - 1).bit_length(), self.dims.n_text_ctx - P)
+        toks = np.full((len(clean), P + max_t), self.tokens.eot, np.int64)
+        toks[:, :P] = prompt
+        for j, c in enumerate(clean):
+            c = c[:max_t]
+            toks[j, P: P + len(c)] = c
+        params, dims, dtype = self._params, self.dims, self.dtype
+        _, _, w = decoder_forward(
+            params, dims, torch.from_numpy(toks).to(self.device),
+            lambda i: cross_kv_layer(params, dims, enc, i, dtype),
+            dtype=dtype, collect_cross_weights="alignment_mean")
+        return w.to(torch.float16).float().cpu().numpy()
+
+    def _apply_word_times(self, segs: list[TranscriptSegment],
+                          weights: np.ndarray, clean_ids: list[int],
+                          dur: float, t0: float, prompt_len: int) -> None:
+        """DTW word times of one window's text tokens, handed out to its
+        segments in order; each segment widens to its words' span."""
+        if not clean_ids:
+            return
+        P = prompt_len
+        tok_slice = weights[P: P + len(clean_ids), :]
+        n_frames = min(int(dur / 0.02), tok_slice.shape[-1])
+        times = attention_to_word_times(
+            tok_slice, self._token_word_map(clean_ids), max(n_frames, 1),
+            time_offset=t0)
+        cursor = 0
+        for seg in segs:
+            words_text = seg.text.split()
+            seg_times = times[cursor: cursor + len(words_text)]
+            cursor += len(words_text)
+            seg.words = [Word(text=w, start=s, end=e, speaker=seg.speaker)
+                         for w, (s, e) in zip(words_text, seg_times)]
+            if seg.words:
+                seg.start = min(seg.start, seg.words[0].start)
+                seg.end = max(seg.end, seg.words[-1].end)
+
+    @staticmethod
+    def _token_word_map(ids: list[int]) -> list[int]:
+        """Word id of each token: without an HF tokenizer every token is a
+        word (on tiny-synth's character vocabulary, word k takes
+        character k's time), the JAX backend's fallback."""
+        return list(range(len(ids)))
 
     def _decode(self, enc: torch.Tensor, prompt: torch.Tensor):
         """(tokens, avg_logprob, no_speech_prob, loop iterations) of the

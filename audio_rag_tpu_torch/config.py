@@ -1,6 +1,6 @@
 """The port's own configuration: plain dataclasses holding the ASR,
-embedding, retrieval and chunking fields the ported slice uses, plus the
-device. Field names and defaults follow ``audio_rag_tpu/config/schema.py``;
+diarization, alignment, embedding, retrieval and chunking fields the
+ported slice uses, plus the device. Field names and defaults follow ``audio_rag_tpu/config/schema.py``;
 that schema cannot name a torch backend or a CUDA device, so the port does
 not reuse it.
 """
@@ -13,6 +13,8 @@ from audio_rag_tpu_torch.core.exceptions import ConfigError
 
 __all__ = [
     "ASRConfig",
+    "DiarizationConfig",
+    "AlignmentConfig",
     "ChunkingConfig",
     "EmbeddingConfig",
     "RetrievalConfig",
@@ -27,6 +29,12 @@ class ASRConfig:
     model_size: str = "tiny-synth"
     #: "bfloat16" = bf16 storage and compute, "float32" = fp32 throughout
     compute_type: str = "bfloat16"
+    #: transcribe only the VAD's speech spans
+    vad_filter: bool = True
+    vad_threshold: float = 0.5
+    #: "auto" = the learned VAD when its weights load and the audio is
+    #: 16 kHz, else the energy gate; "learned" or "energy"
+    vad_backend: str = "auto"
     language: str | None = None
     #: windows decoded together in one batch
     window_batch_size: int = 8
@@ -72,6 +80,55 @@ class ASRConfig:
         if not 0 <= self.speculative_k <= 8:
             raise ConfigError(f"speculative_k must be in [0, 8], got "
                               f"{self.speculative_k}")
+        _check_vad(self.vad_backend)
+        if not 0.0 <= self.vad_threshold <= 1.0:
+            raise ConfigError(f"vad_threshold must be in [0, 1], got "
+                              f"{self.vad_threshold}")
+
+
+def _check_vad(backend: str) -> None:
+    if backend not in ("auto", "learned", "energy"):
+        raise ConfigError(f"vad_backend must be 'auto', 'learned' or "
+                          f"'energy', got {backend!r}")
+
+
+@dataclass
+class DiarizationConfig:
+    #: "clustering" (spectral) or "ahc" (agglomerative, overlap-aware)
+    backend: str = "clustering"
+    #: a ``models.speaker.SPEAKER_PRESETS`` key; "test" keeps a seeded
+    #: tiny encoder, any other name loads the committed trained asset
+    model: str = "titanet-jax"
+    min_speakers: int | None = None
+    max_speakers: int | None = 8
+    min_speech_duration_ms: int = 250
+    #: VAD gating the speaker windows
+    vad_backend: str = "auto"
+    #: AHC: merge clusters while their average cosine distance is below
+    ahc_threshold: float = 0.35
+    #: AHC: a window within this similarity margin of its second-closest
+    #: centroid speaks for both (0 = single-label)
+    overlap_margin: float = 0.0
+    #: speaker-embedding window and shift, seconds
+    window_s: float = 1.5
+    shift_s: float = 0.75
+    #: a converted speaker checkpoint (not ported: raises when set)
+    checkpoint_path: str | None = None
+
+    def __post_init__(self):
+        if self.backend not in ("clustering", "ahc"):
+            raise ConfigError(f"diarization backend must be 'clustering' "
+                              f"or 'ahc', got {self.backend!r}")
+        _check_vad(self.vad_backend)
+        if self.max_speakers is not None and self.max_speakers < 1:
+            raise ConfigError(f"max_speakers must be ≥ 1, got "
+                              f"{self.max_speakers}")
+
+
+@dataclass
+class AlignmentConfig:
+    #: nearest-segment fallback of the word → speaker alignment, seconds
+    tolerance_s: float = 0.5
 
 
 @dataclass
@@ -108,6 +165,8 @@ class RetrievalConfig:
 @dataclass
 class AudioRAGConfig:
     asr: ASRConfig = field(default_factory=ASRConfig)
+    diarization: DiarizationConfig = field(default_factory=DiarizationConfig)
+    alignment: AlignmentConfig = field(default_factory=AlignmentConfig)
     chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)

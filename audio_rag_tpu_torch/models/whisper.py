@@ -5,7 +5,8 @@ Counterpart of ``audio_rag_tpu/models/whisper.py``: the same param tree
 (per-layer blocks stacked on a leading L axis), the same presets, special
 tokens and char codec, and the same functions: :func:`encode`,
 :func:`precompute_cross_kv` (bf16/f32, int8 and int4),
-:func:`decoder_forward` (teacher-forced priming, no cross weights),
+:func:`decoder_forward` (teacher-forced priming, and the word-alignment
+pass with the head-averaged cross weights of the upper layers),
 :func:`_cross_with_kv`, :func:`quantize_decoder_weights` (8 or 4 bits, or
 int8 blocks with an int4 logits head), :func:`quantize_self_cache`,
 :func:`decoder_step` (greedy, beams in the physical or lazy-ancestry
@@ -66,6 +67,7 @@ __all__ = [
     "language_offset",
     "init_whisper",
     "encode",
+    "cross_kv_layer",
     "precompute_cross_kv",
     "decoder_forward",
     "quantize_decoder_weights",
@@ -331,6 +333,21 @@ def _unpack_kv4(x4: torch.Tensor) -> torch.Tensor:
     return torch.cat(kernels.int4_nibbles(x4), dim=-2).to(torch.int8)
 
 
+def cross_kv_layer(params: Params, dims: WhisperDims, enc: torch.Tensor,
+                   i: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``i``'s cross K and V from encoder states, (B, H, Ta, D) each
+    in ``dtype``."""
+    head_dim = dims.n_text_state // dims.n_text_head
+    B, Ta, _ = enc.shape
+    cross = take_layer(params["decoder"]["blocks"]["cross"], i)
+    k = linear(cross["k"], enc, dtype).reshape(
+        B, Ta, dims.n_text_head, head_dim).transpose(1, 2)
+    v = linear(cross["v"], enc, dtype).reshape(
+        B, Ta, dims.n_text_head, head_dim).transpose(1, 2)
+    return k, v
+
+
 def precompute_cross_kv(params: Params, dims: WhisperDims, enc: torch.Tensor,
                         dtype: torch.dtype = torch.bfloat16,
                         quantize: bool = False, bits: int = 8):
@@ -347,16 +364,9 @@ def precompute_cross_kv(params: Params, dims: WhisperDims, enc: torch.Tensor,
     if quantize and bits not in (8, 4):
         raise ValueError(f"cross-KV bits must be 8 or 4, got {bits}")
     quant = _quant8 if bits == 8 else _quant4
-    head_dim = dims.n_text_state // dims.n_text_head
-    B, Ta, _ = enc.shape
-    blocks = params["decoder"]["blocks"]
     ks, vs = [], []
     for i in range(dims.n_text_layer):
-        cross = take_layer(blocks["cross"], i)
-        k = linear(cross["k"], enc, dtype).reshape(
-            B, Ta, dims.n_text_head, head_dim).transpose(1, 2)
-        v = linear(cross["v"], enc, dtype).reshape(
-            B, Ta, dims.n_text_head, head_dim).transpose(1, 2)
+        k, v = cross_kv_layer(params, dims, enc, i, dtype)
         if quantize:
             k, v = quant(k), quant(v)
         ks.append(k)
@@ -371,7 +381,7 @@ def _cross_with_kv(p: Params, x: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, n_heads: int, dtype: torch.dtype,
                    k_scale: torch.Tensor | None = None,
                    v_scale: torch.Tensor | None = None,
-                   q8: Params | None = None) -> torch.Tensor:
+                   q8: Params | None = None, return_weights: bool = False):
     """Cross-attention against precomputed K/V of one layer.
 
     bf16/f32 K/V arrive as (B, H, Ta, D); int8 K/V arrive TRANSPOSED as
@@ -382,6 +392,8 @@ def _cross_with_kv(p: Params, x: torch.Tensor, k: torch.Tensor,
     ``decode_cross_attention_q8`` or ``_q4`` kernel; longer query blocks
     (teacher-forced) take the einsum on the unpacked values with the scales
     folded into q and the output, as in the JAX package.
+    ``return_weights=True`` returns (output, f32 softmax probabilities
+    (B, H, T, Ta)) and always takes the einsum.
     """
     B, T, d_model = x.shape
     head_dim = d_model // n_heads
@@ -400,7 +412,7 @@ def _cross_with_kv(p: Params, x: torch.Tensor, k: torch.Tensor,
             return linear(p["cross"]["o"], o, dtype)
         return linear_q8(p["cross"]["o"], q8["cross_o"], o, dtype)
 
-    if quantized and T <= 8:
+    if quantized and T <= 8 and not return_weights:
         kern = (kernels.decode_cross_attention_q4 if packed4
                 else kernels.decode_cross_attention_q8)
         o = kern(q.contiguous(), k, v, k_scale, v_scale)
@@ -420,6 +432,8 @@ def _cross_with_kv(p: Params, x: torch.Tensor, k: torch.Tensor,
         probs = torch.softmax(logits, dim=-1)
         out = mm_f32(probs.to(dtype), v.to(dtype))
     out = out.to(dtype).transpose(1, 2).reshape(B, T, d_model)
+    if return_weights:
+        return out_proj(out), probs
     return out_proj(out)
 
 
@@ -431,21 +445,38 @@ def decoder_forward(
     pos_offset: int = 0,
     self_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     dtype: torch.dtype = torch.bfloat16,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
-    """Teacher-forced decoder pass (the prompt-priming path).
+    collect_cross_weights: str | None = None,
+):
+    """Teacher-forced decoder pass (prompt priming, word alignment).
 
     ``cross_kv`` is (k, v) or the int8 or int4 quadruple of
-    :func:`precompute_cross_kv`. With ``self_cache`` ((L, B, H, C, hd)
-    each) the new K/V are written in place at ``pos_offset``. Returns
-    (logits (B, T, vocab) f32, the cache or None).
+    :func:`precompute_cross_kv`, or a function of the layer index giving
+    that layer's (k, v) (the alignment pass: one layer's K/V exist at a
+    time). With ``self_cache`` ((L, B, H, C, hd) each) the new K/V are
+    written in place at ``pos_offset``. Returns (logits (B, T, vocab) f32,
+    the cache or None); with ``collect_cross_weights="alignment_mean"``
+    also the DTW alignment statistic: the cross-attention probabilities
+    averaged over all heads of the upper half of the layers
+    (``layer >= L // 2``), (B, T, Ta) f32, summed layer by layer into one
+    buffer.
     """
+    if collect_cross_weights not in (None, "alignment_mean"):
+        raise ValueError("collect_cross_weights must be None or "
+                         f"'alignment_mean', got {collect_cross_weights!r}")
     dec = params["decoder"]
     B, T = tokens.shape
     H = dims.n_text_head
-    quantized = len(cross_kv) == 4
-    ck, cv = cross_kv[0], cross_kv[1]
-    ks, vs = (cross_kv[2], cross_kv[3]) if quantized else (None, None)
+    L = dims.n_text_layer
+    if callable(cross_kv):
+        layer_kv, ks, vs = cross_kv, None, None
+    else:
+        quantized = len(cross_kv) == 4
+        ks, vs = (cross_kv[2], cross_kv[3]) if quantized else (None, None)
+
+        def layer_kv(i):
+            return cross_kv[0][i], cross_kv[1][i]
     device = tokens.device
+    acc = None
 
     x = dec["tok_emb"]["table"].to(dtype)[tokens]
     x = x + dec["pos_emb"][pos_offset:pos_offset + T].to(dtype)
@@ -464,12 +495,21 @@ def decoder_forward(
         h, _ = mha(p["attn"], layer_norm(p["ln1"], x), H, mask=mask,
                    cache=cache, cache_index=pos_offset, dtype=dtype)
         x = x + h
-        x = x + _cross_with_kv(p, x, ck[i], cv[i], H, dtype,
-                               None if ks is None else ks[i],
-                               None if vs is None else vs[i])
+        ck, cv = layer_kv(i)
+        scales = (None if ks is None else ks[i], None if vs is None else vs[i])
+        if collect_cross_weights and i >= L // 2:
+            h, w = _cross_with_kv(p, x, ck, cv, H, dtype, *scales,
+                                  return_weights=True)
+            w = w.mean(dim=1)
+            acc = w if acc is None else acc + w
+        else:
+            h = _cross_with_kv(p, x, ck, cv, H, dtype, *scales)
+        x = x + h
         x = x + mlp(p["mlp"], layer_norm(p["ln_mlp"], x), dtype)
     x = layer_norm(dec["ln"], x)
     logits = mm_f32(x, dec["tok_emb"]["table"].to(dtype).t())
+    if collect_cross_weights:
+        return logits, self_cache, acc / float(L - L // 2)
     return logits, self_cache
 
 

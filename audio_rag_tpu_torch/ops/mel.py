@@ -3,7 +3,8 @@
 Counterpart of ``audio_rag_tpu/ops/mel.py`` (n_fft=400, hop=160, periodic
 Hann window, slaney mel filterbank, log10 → clamp to max−8 → (x+4)/4):
 frames @ (window⊙cos) and frames @ (window⊙sin), the power spectrum, then
-the mel projection, all in f32. The filterbank and DFT bases are the same
+the mel projection, all in f32 (the clamp is left out for the speaker
+encoder, ``global_norm=False``). The filterbank and DFT bases are the same
 float64 numpy tables cast to f32.
 """
 
@@ -93,9 +94,11 @@ def _dft_bases(n_fft: int = N_FFT) -> tuple[np.ndarray, np.ndarray]:
     return cos_b, sin_b
 
 
-def log_mel_batch(windows: torch.Tensor, n_mels: int = 128) -> torch.Tensor:
+def log_mel_batch(windows: torch.Tensor, n_mels: int = 128,
+                  global_norm: bool = True) -> torch.Tensor:
     """(B, n_samples) f32 PCM → (B, n_mels, n_samples // HOP) log-mel, each
-    window clamped to its own max − 8 (Whisper's per-input normalization)."""
+    window clamped to its own max − 8 (Whisper's per-input normalization)
+    unless ``global_norm`` is False (the speaker encoder's input)."""
     windows = windows.float()
     dev = windows.device
     n_frames = windows.shape[-1] // HOP_LENGTH
@@ -109,14 +112,17 @@ def log_mel_batch(windows: torch.Tensor, n_mels: int = 128) -> torch.Tensor:
         im = torch.matmul(frames, sin_b)
         mel = torch.matmul(re * re + im * im, fb.t())
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
-    top = torch.amax(log_spec, dim=(1, 2), keepdim=True)
-    log_spec = torch.maximum(log_spec, top - 8.0)
+    if global_norm:
+        top = torch.amax(log_spec, dim=(1, 2), keepdim=True)
+        log_spec = torch.maximum(log_spec, top - 8.0)
     return ((log_spec + 4.0) / 4.0).transpose(1, 2)
 
 
-def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 128) -> torch.Tensor:
+def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 128,
+                        global_norm: bool = True) -> torch.Tensor:
     """(n_samples,) f32 PCM → (n_mels, n_frames) log-mel."""
-    return log_mel_batch(audio[None], n_mels=n_mels)[0]
+    return log_mel_batch(audio[None], n_mels=n_mels,
+                         global_norm=global_norm)[0]
 
 
 def pad_or_trim(audio: np.ndarray, length: int = N_SAMPLES) -> np.ndarray:

@@ -1,11 +1,13 @@
 """``AudioRAG`` of the port: ingest audio into a collection, query it.
 
 Follows ``audio_rag_tpu/pipeline/ingestion.py::IngestionPipeline.ingest``
-and ``pipeline/query.py::QueryPipeline.query`` with diarization, contextual
-headers, reranking, query expansion, answer generation and TTS off:
+and ``pipeline/query.py::QueryPipeline.query`` with contextual headers,
+reranking, query expansion, answer generation and TTS off:
 
-* ingest: transcribe with interpolated word times → speaker-turn chunks →
-  BGE-M3 dense + sparse embeddings → the device-resident store;
+* ingest: transcribe with DTW word times → (``diarize=True``, the default)
+  diarize → attribute words to speakers → rebuild the transcript by
+  speaker turn → speaker-turn chunks → BGE-M3 dense + sparse embeddings →
+  the device-resident store;
 * query: embed the query → dense / sparse / hybrid (RRF) search → top-k.
 
 Components are built lazily on the configured device (CUDA by default; a
@@ -21,12 +23,16 @@ from typing import Any
 
 import numpy as np
 
+from audio_rag_tpu_torch.alignment.aligner import (
+    align_words_to_speakers,
+    build_speaker_transcript,
+)
 from audio_rag_tpu_torch.asr.whisper import WhisperASR
 from audio_rag_tpu_torch.chunking.speaker_turn import SpeakerTurnChunker
 from audio_rag_tpu_torch.config import AudioRAGConfig
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import RetrievalResult
 from audio_rag_tpu_torch.device import resolve_device
+from audio_rag_tpu_torch.diarization import create_diarizer
 from audio_rag_tpu_torch.embeddings.bge import BGEM3Embedder
 from audio_rag_tpu_torch.retrieval.store import VectorStore
 
@@ -39,6 +45,7 @@ class IngestionResult:
     collection: str
     num_segments: int
     num_chunks: int
+    num_speakers: int
     duration_s: float
     elapsed_s: float
     stage_timings: dict[str, float] = field(default_factory=dict)
@@ -57,6 +64,7 @@ class AudioRAG:
         self.config = config or AudioRAGConfig()
         self.device = resolve_device(self.config.device)
         self._asr: WhisperASR | None = None
+        self._diarizer = None
         self._embedder: BGEM3Embedder | None = None
         self.chunker = SpeakerTurnChunker(self.config.chunking)
         self.store = VectorStore(self.config.retrieval, device=self.device)
@@ -69,6 +77,14 @@ class AudioRAG:
         return self._asr
 
     @property
+    def diarizer(self):
+        if self._diarizer is None:
+            self._diarizer = create_diarizer(self.config.diarization,
+                                             device=self.device)
+        self._diarizer.load()
+        return self._diarizer
+
+    @property
     def embedder(self) -> BGEM3Embedder:
         if self._embedder is None:
             self._embedder = BGEM3Embedder(self.config.embedding,
@@ -77,14 +93,10 @@ class AudioRAG:
         return self._embedder
 
     def ingest(self, audio: str | Path | np.ndarray,
-               collection: str | None = None, diarize: bool = False,
+               collection: str | None = None, diarize: bool = True,
                sample_rate: int | None = None,
                metadata: dict[str, Any] | None = None) -> IngestionResult:
-        """transcribe → chunk → embed → store. ``diarize=True`` is refused:
-        diarization is not part of the port yet."""
-        if diarize:
-            raise ConfigError("diarization is not ported yet; "
-                              "ingest with diarize=False")
+        """transcribe → (diarize → align) → chunk → embed → store."""
         t_start = time.perf_counter()
         timings: dict[str, float] = {}
         source = (str(audio) if not isinstance(audio, np.ndarray)
@@ -95,8 +107,18 @@ class AudioRAG:
         segments = self.asr.transcribe_with_words(audio, sample_rate)
         timings["transcribe"] = time.perf_counter() - t0
         if not segments:
-            return IngestionResult(source, collection, 0, 0, 0.0,
+            return IngestionResult(source, collection, 0, 0, 0, 0.0,
                                    time.perf_counter() - t_start, timings)
+        if diarize:
+            t0 = time.perf_counter()
+            diar = self.diarizer.diarize(audio, sample_rate)
+            timings["diarize"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            words = [w for s in segments for w in s.words]
+            aligned = align_words_to_speakers(
+                words, diar, self.config.alignment.tolerance_s)
+            segments = build_speaker_transcript(aligned)
+            timings["align"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         chunks = self.chunker.chunk(segments)
         meta = {"source": source, **(metadata or {})}
@@ -109,9 +131,12 @@ class AudioRAG:
         t0 = time.perf_counter()
         self.store.add(chunks, embeddings, collection)
         timings["index"] = time.perf_counter() - t0
+        speakers = ({s.speaker for s in segments if s.speaker}
+                    or {c.speaker for c in chunks if c.speaker})
         return IngestionResult(
             source=source, collection=collection,
             num_segments=len(segments), num_chunks=len(chunks),
+            num_speakers=len(speakers),
             duration_s=round(max(s.end for s in segments), 3),
             elapsed_s=time.perf_counter() - t_start, stage_timings=timings)
 

@@ -21,25 +21,33 @@ import torch
 
 from audio_rag_tpu_torch.models.bert import BertDims
 from audio_rag_tpu_torch.models.layers import q4_group
+from audio_rag_tpu_torch.models.speaker import SpeakerDims
 from audio_rag_tpu_torch.models.whisper import WhisperDims
 
 __all__ = [
     "whisper_spec",
     "bgem3_spec",
+    "speaker_spec",
+    "vad_spec",
     "whisper_params",
     "whisper_q8_params",
     "whisper_cross_kv",
     "whisper_self_cache_q8",
     "bgem3_params",
+    "speaker_params",
+    "vad_params",
 ]
 
 Shape = tuple[int, ...]
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
+    """Slash-joined key → leaf; a list's items are keyed by their index."""
     flat: dict[str, Any] = {}
     for k, v in tree.items():
         key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, list):
+            v = {str(i): item for i, item in enumerate(v)}
         if isinstance(v, dict):
             flat.update(_flatten(v, key))
         else:
@@ -129,6 +137,33 @@ def bgem3_spec(dims: BertDims) -> dict[str, Shape]:
     return spec
 
 
+def speaker_spec(dims: SpeakerDims) -> dict[str, Shape]:
+    """Slash-joined key → shape of every leaf of a speaker-encoder tree
+    (the blocks list keyed by index)."""
+    spec: dict[str, Shape] = {}
+    c_in = dims.n_mels
+    for i in range(dims.n_blocks):
+        spec[f"blocks/{i}/conv/w"] = (dims.kernel, c_in, dims.channels)
+        spec[f"blocks/{i}/conv/b"] = (dims.channels,)
+        spec.update(_ln(f"blocks/{i}/ln", None, dims.channels))
+        c_in = dims.channels
+    spec.update(_lin("attn", None, dims.channels, 1))
+    spec.update(_lin("proj", None, 2 * dims.channels, dims.emb_dim))
+    return spec
+
+
+def vad_spec(n_mels: int = 80, channels: int = 64) -> dict[str, Shape]:
+    """Slash-joined key → shape of every leaf of a VAD tree."""
+    spec: dict[str, Shape] = {"c1/w": (5, n_mels, channels),
+                              "c1/b": (channels,),
+                              "c2/w": (5, channels, channels),
+                              "c2/b": (channels,)}
+    spec.update(_ln("ln1", None, channels))
+    spec.update(_ln("ln2", None, channels))
+    spec.update(_lin("out", None, channels, 1))
+    return spec
+
+
 def _to_tensor(arr: Any, device: torch.device,
                dtype: torch.dtype | None) -> torch.Tensor:
     a = np.array(arr)  # a copy: the tree's arrays may be read-only views
@@ -180,6 +215,29 @@ def bgem3_params(tree: dict, dims: BertDims,
                  dtype: torch.dtype = torch.float32) -> dict:
     """A BGE-M3 tree (``init_bgem3`` layout) → tensors of ``dtype``."""
     return _float_tree(tree, bgem3_spec(dims), "bgem3", device, dtype)
+
+
+def speaker_params(tree: dict, dims: SpeakerDims,
+                   device: str | torch.device = "cpu",
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """A speaker-encoder tree (``init_speaker_encoder`` layout, blocks as
+    a list or keyed by index) → tensors, blocks as a list."""
+    out = _float_tree(tree, speaker_spec(dims), "speaker", device, dtype)
+    out["blocks"] = [out["blocks"][str(i)] for i in range(dims.n_blocks)]
+    return out
+
+
+def vad_params(tree: dict, device: str | torch.device = "cpu",
+               dtype: torch.dtype = torch.float32) -> dict:
+    """A VAD tree (``init_vad`` layout, nested or with the asset's flat
+    "c1/w" keys) → tensors; the widths follow ``c1/w``."""
+    flat = _flatten(tree)
+    shape = np.shape(flat.get("c1/w", ()))
+    if len(shape) != 3:
+        raise KeyError(f"VAD tree: c1/w has shape {shape}, expected "
+                       "(5, n_mels, channels)")
+    return _float_tree(_nest(flat), vad_spec(shape[1], shape[2]), "VAD",
+                       device, dtype)
 
 
 def _quant_leaf(prefix: str, leaf: Any, din: int,

@@ -59,7 +59,29 @@ subset):
               plain path's; lazy's agreement is printed), a traced window
               of beam steps and the peak memory of each mode, then 16
               windows through ``AudioRAG.ingest``/``query`` with
-              ``BEAM_REORDER=kernel``.
+              ``BEAM_REORDER=kernel``;
+8. diarize  — the diarized ingest: (a) the JAX package's trained
+              end-to-end layout (three turns, 0.5 s gaps) through
+              ``AudioRAG.ingest`` with ``diarize=True`` in the int8 profile,
+              on the card and on the port's CPU, which must give the same
+              chunk texts and speakers and word times within 0.02 s, with
+              the spoken words in each query's top hit; (b) the trained
+              speaker test's 3-voice 50 s conversation through both
+              diarizers (energy VAD, 3 speakers): DER below 0.35 and
+              within 0.01 of the port's CPU run; (c) a 10-minute 4-voice
+              conversation (more than one 512-window embedding batch and
+              one 128-clip VAD batch): VAD, embedding and clustering ms,
+              windows, diarization seconds per audio second and peak
+              memory.
+
+``diarize`` runs right after ``spine``. The spine ingests with
+diarization and the VAD filter off (one chunk per 6 s window). The
+large-v3 ingests of ``full``, ``full_kv4`` and ``beam`` run with the port's
+defaults, DTW word times from the teacher-forced alignment pass and
+diarization (learned VAD, speaker embeddings, spectral clustering) with
+word → speaker alignment, but with the VAD filter off so that the window
+count is fixed; each prints the alignment pass's seconds, the ``diarize``
+and ``align`` stage seconds, the diarizer's own timings and RTF.
 
 Each path resets the launch counters before it runs, reads them after, and
 fails unless every kernel it runs was launched; on the large-v3 paths every
@@ -867,7 +889,7 @@ def spine_config(device: str, profile: str):
 
     return AudioRAGConfig(
         asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
-                      **PROFILES[profile][0]),
+                      vad_filter=False, **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
         # small max_tokens: each 6 s window's segment becomes its own chunk
@@ -911,7 +933,7 @@ def run_spine(device: str, profile: str, workdir: Path) -> dict:
     rag.embedder
     t0 = time.perf_counter()
     with run_with_reorder(profile):
-        res = rag.ingest(str(wav_path), collection="spine")
+        res = rag.ingest(str(wav_path), collection="spine", diarize=False)
     ingest_s = time.perf_counter() - t0
     out = {"chunks": res.num_chunks, "ingest_ms": ingest_s * 1e3,
            "decode_steps": rag.asr.timings["decode_steps"],
@@ -1005,6 +1027,196 @@ def phase_spine(torch, K, workdir: Path) -> dict:
     return by_path
 
 
+# -- phase 8: the diarized ingest ---------------------------------------------------
+
+DIAR_PROFILE = "int8"
+TIME_TOL = 0.02  # one encoder frame
+DER_BOUND = 0.35  # the JAX package's trained speaker test's bound
+
+
+def gap_audio():
+    """The JAX package's trained end-to-end test layout: 0.3 s of silence,
+    then each turn (rng 7) followed by 0.5 s of silence."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.audio.charvoice import SR, synth_text
+
+    rng = np.random.default_rng(7)
+    pieces = [np.zeros(int(0.3 * SR), np.float32)]
+    for text in SPINE_TURNS:
+        pieces.append(synth_text(text, rng, noise_level=0.005))
+        pieces.append(np.zeros(int(0.5 * SR), np.float32))
+    return np.concatenate(pieces)
+
+
+def run_diarized(device: str, wav_path: Path) -> dict:
+    """``AudioRAG.ingest(diarize=True)`` of the end-to-end layout as that
+    test configures it (no VAD filter on the ASR, at most 2 speakers),
+    then both queries; returns the chunks, the words and the hits."""
+    from audio_rag_tpu_torch.config import (
+        ASRConfig, AudioRAGConfig, ChunkingConfig, DiarizationConfig,
+        EmbeddingConfig, RetrievalConfig)
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+
+    rag = AudioRAG(AudioRAGConfig(
+        asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
+                      vad_filter=False, **PROFILES[DIAR_PROFILE][0]),
+        diarization=DiarizationConfig(max_speakers=2),
+        embedding=EmbeddingConfig(model="eval-small"),
+        retrieval=RetrievalConfig(capacity_step=128),
+        chunking=ChunkingConfig(min_chunk_tokens=1, overlap_tokens=0),
+        device=device))
+    asr = rag.asr
+    rag.diarizer
+    rag.embedder
+    words: list = []
+    transcribe = asr.transcribe_with_words
+
+    def spy(*args, **kw):
+        segs = transcribe(*args, **kw)
+        words.extend((w.text, float(w.start), float(w.end))
+                     for s in segs for w in s.words)
+        return segs
+
+    asr.transcribe_with_words = spy
+    t0 = time.perf_counter()
+    res = rag.ingest(str(wav_path), collection="diar")
+    ingest_ms = (time.perf_counter() - t0) * 1e3
+    chunks = [(c["text"], c["speaker"], float(c["start"]), float(c["end"]))
+              for c in rag.store._collections["diar"].payloads]
+    out = {"chunks": chunks, "words": words, "ingest_ms": ingest_ms,
+           "speakers": res.num_speakers, "stages": res.stage_timings,
+           "align_pass_s": asr.timings["align_s"], "queries": []}
+    for text, spoken in SPINE_QUERIES:
+        hits = rag.query(text, top_k=2, search_type="hybrid",
+                         collection="diar").results
+        out["queries"].append({
+            "query": text, "top": [h.text for h in hits],
+            "ok": bool(hits) and any(w in hits[0].text for w in spoken)})
+    return out
+
+
+def run_der(device: str, audio, turns) -> dict:
+    """Both diarizers on the conversation (energy VAD, 3 speakers):
+    DER against its turns and the diarizers' stage timings."""
+    from audio_rag_tpu_torch.config import DiarizationConfig
+    from audio_rag_tpu_torch.core.types import TranscriptSegment
+    from audio_rag_tpu_torch.diarization import create_diarizer
+    from audio_rag_tpu_torch.diarization.metrics import (
+        diarization_error_rate)
+
+    ref = [TranscriptSegment("", s, e, f"REF_{k}") for s, e, k in turns]
+    out = {}
+    for backend in ("clustering", "ahc"):
+        d = create_diarizer(DiarizationConfig(backend=backend,
+                                              vad_backend="energy"),
+                            device=device)
+        d.load()
+        t0 = time.perf_counter()
+        hyp = d.diarize(audio, 16_000, num_speakers=3)
+        ms = (time.perf_counter() - t0) * 1e3
+        out[backend] = {"der": diarization_error_rate(ref, hyp).der,
+                        "ms": ms, "segments": len(hyp), **d.timings}
+    return out
+
+
+def phase_diarize(torch, K, workdir: Path) -> dict:
+    """The diarized ingest on the card against the port's CPU run, the DER
+    case, and a 10-minute conversation; returns launches by path."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.audio.charvoice import SR
+    from audio_rag_tpu_torch.audio.io import write_wav
+    from audio_rag_tpu_torch.audio.synth import conversation, sample_voice
+    from audio_rag_tpu_torch.config import DiarizationConfig
+    from audio_rag_tpu_torch.core.types import TranscriptSegment
+    from audio_rag_tpu_torch.diarization import create_diarizer
+    from audio_rag_tpu_torch.diarization.metrics import (
+        diarization_error_rate)
+
+    # (a) the end-to-end layout, card against CPU
+    wav_path = workdir / "lecture_gaps.wav"
+    write_wav(wav_path, gap_audio(), SR)
+    K.reset_launches()
+    card = run_diarized("cuda", wav_path)
+    torch.cuda.synchronize()
+    launches = launch_counts(K)
+    cpu = run_diarized("cpu", wav_path)
+    tag = f"diarize[{DIAR_PROFILE}]"
+    print(f"{tag} chunks (text, speaker, start, end):",
+          json.dumps(card["chunks"]))
+    print(f"{tag} cpu chunks:", json.dumps(cpu["chunks"]))
+    print(f"{tag} ingest_ms {card['ingest_ms']:.1f} speakers "
+          f"{card['speakers']} align_pass_s {card['align_pass_s']:.4f} "
+          f"stages {json.dumps(card['stages'])}")
+    for q in card["queries"]:
+        print(f"{tag} query {q['query']!r} top {json.dumps(q['top'])} "
+              f"spoken words in the top hit: {'yes' if q['ok'] else 'no'}")
+    print(f"{tag} launches", json.dumps(launches), flush=True)
+    if not card["chunks"] or not all(c[1] for c in card["chunks"]):
+        fail(f"{tag}: no chunks, or chunks without a speaker")
+    if [c[:2] for c in card["chunks"]] != [c[:2] for c in cpu["chunks"]]:
+        fail(f"{tag}: chunk texts or speakers differ from the CPU run")
+    dw = [max(abs(a[1] - b[1]), abs(a[2] - b[2]))
+          for a, b in zip(card["words"], cpu["words"])]
+    print(f"{tag} words {len(card['words'])} max word-time difference to "
+          f"the CPU run {max(dw, default=0.0):.3f} s", flush=True)
+    if ([w[0] for w in card["words"]] != [w[0] for w in cpu["words"]]
+            or not dw or max(dw) > TIME_TOL):
+        fail(f"{tag}: words or word times differ from the CPU run")
+    if not all(q["ok"] for q in card["queries"]):
+        fail(f"{tag}: a query's top hit lacks its spoken words")
+    check_launches(tag, launches, PROFILES[DIAR_PROFILE][1])
+
+    # (b) the DER case: the trained speaker test's conversation
+    rng = np.random.default_rng(2024)
+    voices = [sample_voice(rng) for _ in range(3)]
+    audio, turns = conversation(rng, voices, duration_s=50.0)
+    der_card, der_cpu = run_der("cuda", audio, turns), run_der("cpu", audio,
+                                                               turns)
+    for backend in der_card:
+        got, ref = der_card[backend], der_cpu[backend]
+        print(f"diarize[der,{backend}] card {json.dumps(got)} cpu DER "
+              f"{ref['der']}", flush=True)
+        if not got["der"] < DER_BOUND or abs(got["der"] - ref["der"]) > 0.01:
+            fail(f"diarize[der,{backend}]: DER {got['der']} (CPU "
+                 f"{ref['der']}, bound {DER_BOUND})")
+
+    # (c) a 10-minute 4-voice conversation on the card
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(99)
+    voices = [sample_voice(rng) for _ in range(4)]
+    long_audio, long_turns = conversation(rng, voices, duration_s=600.0)
+    synth_s = time.perf_counter() - t0
+    d = create_diarizer(DiarizationConfig(), device="cuda")
+    d.load()
+    d.diarize(long_audio[: 30 * SR], SR)  # first calls, outside the timing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    segs = d.diarize(long_audio, SR)
+    wall = time.perf_counter() - t0
+    tm = d.timings
+    out = {"audio_s": len(long_audio) / SR, "windows": tm["windows"],
+           "vad_clips": -(-len(long_audio) // (3 * SR)),
+           "vad_ms": tm["vad_s"] * 1e3, "embed_ms": tm["embed_s"] * 1e3,
+           "cluster_ms": tm["cluster_s"] * 1e3, "diarize_s": wall,
+           "diarize_s_per_audio_s": wall / (len(long_audio) / SR),
+           "speakers": len({s.speaker for s in segs}),
+           "turns_voices": len({k for _, _, k in long_turns}),
+           "segments": len(segs),
+           "der": diarization_error_rate(
+               [TranscriptSegment("", s, e, f"REF_{k}")
+                for s, e, k in long_turns], segs).der,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "synth_s": synth_s}
+    print("diarize[10min]", json.dumps(out), flush=True)
+    if out["windows"] <= 512 or out["vad_clips"] <= 128 or not segs:
+        fail(f"diarize[10min]: expected more than 512 windows and 128 VAD "
+             f"clips and some segments, got {out}")
+    return {tag: launches}
+
+
 def large_v3_config(device: str, profile: str, window_batch: int):
     from audio_rag_tpu_torch.config import (
         ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig)
@@ -1012,7 +1224,8 @@ def large_v3_config(device: str, profile: str, window_batch: int):
     return AudioRAGConfig(
         asr=ASRConfig(model_size="large-v3", compute_type="bfloat16",
                       window_batch_size=window_batch, max_decode_tokens=32,
-                      language="en", seed=0, **PROFILES[profile][0]),
+                      language="en", seed=0, vad_filter=False,
+                      **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
         chunking=ChunkingConfig(min_chunk_tokens=1, overlap_tokens=0),
         device=device)
@@ -1267,6 +1480,7 @@ def ingest_run(torch, K, tag: str, rag, profile: str, wav,
 
     seconds = len(wav) / SR
     asr = rag.asr
+    rag.diarizer  # load the speaker encoder outside the timed ingest
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1286,8 +1500,15 @@ def ingest_run(torch, K, tag: str, rag, profile: str, wav,
         "decode_ms": tm["decode_s"] * 1e3,
         "decode_loop_steps": tm["decode_steps"],
         "mel_ms": tm["mel_s"] * 1e3,
+        # the teacher-forced alignment pass and the host DTW
+        "align_pass_s": tm["align_s"], "dtw_s": tm["dtw_s"],
         "transcribe_s": res.stage_timings["transcribe"],
+        "diarize_s": res.stage_timings["diarize"],
+        "align_stage_s": res.stage_timings["align"],
+        "diarize_timings": dict(rag.diarizer.timings),
+        "speakers": res.num_speakers,
         "rtf": res.stage_timings["transcribe"] / seconds,
+        "ingest_rtf": sum(res.stage_timings.values()) / seconds,
         "ingest_query_s": wall, "chunks": res.num_chunks,
         "segments": res.num_segments, "hits": len(hits),
         "peak_mem_gb": peak_gb, "launches": launches,
@@ -1469,9 +1690,10 @@ def phase_beam(torch, K) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,spine,full,full_kv4,capacity,beam",
+                    default="build,kernels,spine,diarize,full,full_kv4,"
+                            "capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
-                         "full,full_kv4,capacity,beam")
+                         "diarize,full,full_kv4,capacity,beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1512,6 +1734,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         if "spine" in phases:
             by_path.update(phase_spine(torch, K, Path(tmp)))
+        if "diarize" in phases:
+            by_path.update(phase_diarize(torch, K, Path(tmp)))
+            free_card(torch)
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)
         free_card(torch)  # two large-v3 copies need not coexist

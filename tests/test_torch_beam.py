@@ -348,7 +348,8 @@ def test_asr_picks_the_strategy_and_counts_its_iterations(monkeypatch,
 
     monkeypatch.setattr(aw, decoder, spy)
     asr = aw.WhisperASR(ASRConfig(model_size="test", compute_type="float32",
-                                  window_batch_size=2, **switches), "cpu")
+                                  window_batch_size=2, vad_filter=False,
+                                  **switches), "cpu")
     audio = 0.05 * np.random.default_rng(0).standard_normal(
         16000 * 4).astype(np.float32)
     segs = asr.transcribe(audio, 16000)

@@ -1,8 +1,10 @@
 """The PyTorch port's ingest → query slice as a whole: the same audio through
 the port's ``AudioRAG`` and the JAX package's gives identical segment texts,
-chunk texts and top-2 rankings; the port's entry points refuse a missing
-card instead of running on the CPU; the port and ``chip_smoke.py`` import
-nothing of JAX or of the JAX package."""
+chunk texts and top-2 rankings, the same DTW word times and segment bounds
+within 0.02 s, with diarization the same speakers and chunk bounds, and with
+the VAD filter the same spans transcribed; the port's entry points refuse a
+missing card instead of running on the CPU; the port and ``chip_smoke.py``
+import nothing of JAX or of the JAX package."""
 
 import ast
 import subprocess
@@ -23,6 +25,7 @@ from audio_rag_tpu_torch.config import (
     ASRConfig,
     AudioRAGConfig,
     ChunkingConfig,
+    DiarizationConfig,
     EmbeddingConfig,
     RetrievalConfig,
 )
@@ -48,6 +51,39 @@ def _turn_audio():
         wav = synth_text(text, rng, noise_level=0.005)
         out[i * win + lead: i * win + lead + wav.size] = wav
     return out
+
+
+def _gap_audio():
+    """The JAX trained end-to-end test's own layout: 0.3 s of silence, then
+    each turn (rng 7) followed by 0.5 s of silence."""
+    rng = np.random.default_rng(7)
+    pieces = [np.zeros(int(0.3 * SR), np.float32)]
+    for text in TURNS:
+        pieces.append(synth_text(text, rng, noise_level=0.005))
+        pieces.append(np.zeros(int(0.5 * SR), np.float32))
+    return np.concatenate(pieces)
+
+
+TIME_TOL = 0.02  # one encoder frame
+
+
+def _timed(segments):
+    """(text, start, end, [(word, start, end)]) of each segment."""
+    return [(s.text, float(s.start), float(s.end),
+             [(w.text, float(w.start), float(w.end)) for w in s.words])
+            for s in segments]
+
+
+def _assert_same_times(got, ref):
+    """Same segment and word texts; bounds and word times within 0.02 s."""
+    assert [g[0] for g in got] == [r[0] for r in ref]
+    for (_, gs, ge, gw), (_, rs, re, rw) in zip(got, ref):
+        assert abs(gs - rs) <= TIME_TOL and abs(ge - re) <= TIME_TOL, (
+            (gs, ge), (rs, re))
+        assert [w[0] for w in gw] == [w[0] for w in rw]
+        for (_, a, b), (_, c, d) in zip(gw, rw):
+            assert abs(a - c) <= TIME_TOL and abs(b - d) <= TIME_TOL, (
+                gw, rw)
 
 
 def _spy(monkeypatch, obj, name, seen):
@@ -78,11 +114,17 @@ PROFILES = {
 }
 
 
-def _run_jax(path, switches, monkeypatch):
+def _jax_rag(switches, diarization=None, max_tokens=8):
+    """The JAX package's pipeline as the port runs: one device, so each
+    window's log-mel is clamped to its own max − 8 (``mel_sharded=False``;
+    the test process's 8 virtual CPU devices would otherwise compute a
+    time-contiguous batch's mel as one span with one clamp)."""
     cfg = JaxConfig(**{
         "asr": {"backend": "whisper-jax", "model_size": "tiny-synth",
                 "compute_type": "float32", "vad_filter": False,
-                "temperature_fallback": False, **switches},
+                "temperature_fallback": False, "mel_sharded": False,
+                **switches},
+        **({"diarization": diarization} if diarization else {}),
         "embedding": {"backend": "bge-m3", "model": "eval-small"},
         "retrieval": {"backend": "tpu", "capacity_step": 128},
         "reranking": {"backend": "none"},
@@ -90,65 +132,132 @@ def _run_jax(path, switches, monkeypatch):
         "tts": {"backend": "null"},
         "chunking": {"min_chunk_tokens": 1, "overlap_tokens": 0},
     })
-    cfg.chunking.max_tokens = 8  # one chunk per window (schema floor: 50)
-    rag = JaxAudioRAG(cfg)
+    # max_tokens 8: one chunk per window (below the schema's floor of 50)
+    cfg.chunking.max_tokens = max_tokens
+    return JaxAudioRAG(cfg)
+
+
+def _port_rag(switches, diarization=None, max_tokens=8):
+    return AudioRAG(AudioRAGConfig(
+        asr=ASRConfig(**{"model_size": "tiny-synth",
+                         "compute_type": "float32", "vad_filter": False,
+                         **switches}),
+        diarization=diarization or DiarizationConfig(),
+        embedding=EmbeddingConfig(model="eval-small"),
+        retrieval=RetrievalConfig(capacity_step=128),
+        chunking=ChunkingConfig(max_tokens=max_tokens, min_chunk_tokens=1,
+                                overlap_tokens=0),
+        device="cpu"))
+
+
+def _chunks(payloads):
+    return [(p["text"], p["speaker"], float(p["start"]), float(p["end"]))
+            for p in payloads]
+
+
+def _run_jax(path, switches, monkeypatch, diarize=False, **rag_kw):
+    rag = _jax_rag(switches, **rag_kw)
     try:
         segments = []
         _spy(monkeypatch, rag.ingestion.asr, "transcribe_with_words",
              segments)
-        rag.ingest(str(path), collection="slice", diarize=False)
-        chunks = [p["text"] for p in
-                  rag._retriever._coll("slice").payloads]
+        rag.ingest(str(path), collection="slice", diarize=diarize)
+        chunks = _chunks(rag._retriever._coll("slice").payloads)
         ranks = [[r.text for r in rag.query(
             q, top_k=2, search_type="hybrid", collection="slice").results]
             for q in QUERIES]
     finally:
         rag.unload_all()
-    return [s.text for s in segments], chunks, ranks
+    return _timed(segments), chunks, ranks
 
 
-def _run_port(path, switches, monkeypatch):
-    rag = AudioRAG(AudioRAGConfig(
-        asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
-                      **switches),
-        embedding=EmbeddingConfig(model="eval-small"),
-        retrieval=RetrievalConfig(capacity_step=128),
-        chunking=ChunkingConfig(max_tokens=8, min_chunk_tokens=1,
-                                overlap_tokens=0),
-        device="cpu"))
+def _run_port(path, switches, monkeypatch, diarize=False, **rag_kw):
+    rag = _port_rag(switches, **rag_kw)
     segments = []
     _spy(monkeypatch, rag.asr, "transcribe_with_words", segments)
-    res = rag.ingest(str(path), collection="slice", diarize=False)
-    chunks = [p["text"] for p in rag.store._coll("slice").payloads]
+    res = rag.ingest(str(path), collection="slice", diarize=diarize)
+    chunks = _chunks(rag.store._coll("slice").payloads)
     ranks = [[r.text for r in rag.query(
         q, top_k=2, search_type="hybrid", collection="slice").results]
         for q in QUERIES]
     assert res.num_chunks == len(chunks) == rag.count("slice")
     assert all(w.end >= w.start for s in segments for w in s.words)
-    return [s.text for s in segments], chunks, ranks
+    assert set(res.stage_timings) >= (
+        {"transcribe", "diarize", "align"} if diarize else {"transcribe"})
+    return _timed(segments), chunks, ranks
 
 
 @pytest.mark.skipif(not (ASSETS_DIR / "asr_tiny_synth.npz").exists(),
                     reason="trained ASR asset not built")
 @pytest.mark.parametrize("profile", list(PROFILES))
 def test_slice_matches_jax(profile, tmp_path, monkeypatch):
-    """Both packages give the same segments, chunks and rankings in each
-    decode profile. Under int4 cross K/V the JAX package garbles the turns'
-    words on tiny-synth ("gradint descescent"), so there the port is held
-    to it and not to the spoken words."""
+    """Both packages give the same segments, word times (DTW, within
+    0.02 s), chunks and rankings in each decode profile. Under int4 cross
+    K/V the JAX package garbles the turns' words on tiny-synth ("gradint
+    descescent"), so there the port is held to it and not to the spoken
+    words."""
     path = tmp_path / "turns.wav"
     write_wav(path, _turn_audio(), SR)
     switches = PROFILES[profile]
     jax_segments, jax_chunks, jax_ranks = _run_jax(path, switches,
                                                    monkeypatch)
     segments, chunks, ranks = _run_port(path, switches, monkeypatch)
-    assert segments == jax_segments
-    assert chunks == jax_chunks
+    _assert_same_times(segments, jax_segments)
+    assert [c[0] for c in chunks] == [c[0] for c in jax_chunks]
     assert ranks == jax_ranks
     assert len(chunks) == 3
     if not switches.get("cross_kv_int4"):
         # the spoken content is what the queries find
         assert "gradient" in ranks[0][0] and "spectrogram" in ranks[1][0]
+
+
+@pytest.mark.skipif(not (ASSETS_DIR / "asr_tiny_synth.npz").exists(),
+                    reason="trained ASR asset not built")
+def test_diarized_slice_matches_jax(tmp_path, monkeypatch):
+    """The twin of the JAX package's trained end-to-end test on its own
+    0.5 s-gap layout and configuration (f32, no VAD filter), diarizing by
+    default (clustering, learned VAD, at most 2 speakers): the same chunk
+    texts, speakers, start and end, the same top-2 rankings, and the
+    spoken words in each query's top hit. (``chip_smoke.py`` runs the int8
+    profile of it on the card against this CPU path.)"""
+    path = tmp_path / "lecture.wav"
+    write_wav(path, _gap_audio(), SR)
+    switches = PROFILES["fp32"]
+    jax_out = _run_jax(path, switches, monkeypatch, diarize=True,
+                       diarization={"backend": "clustering",
+                                    "max_speakers": 2}, max_tokens=256)
+    port_out = _run_port(path, switches, monkeypatch, diarize=True,
+                         diarization=DiarizationConfig(max_speakers=2),
+                         max_tokens=256)
+    _assert_same_times(port_out[0], jax_out[0])
+    (segments, chunks, ranks), (_, jax_chunks, jax_ranks) = port_out, jax_out
+    assert [c[:2] for c in chunks] == [c[:2] for c in jax_chunks]
+    for got, ref in zip(chunks, jax_chunks):
+        assert abs(got[2] - ref[2]) <= TIME_TOL
+        assert abs(got[3] - ref[3]) <= TIME_TOL
+    assert ranks == jax_ranks
+    assert chunks and all(c[1] for c in chunks)
+    assert "gradient" in ranks[0][0] or "descent" in ranks[0][0]
+    assert "spectrogram" in ranks[1][0] or "harmonic" in ranks[1][0]
+
+
+@pytest.mark.skipif(not (ASSETS_DIR / "asr_tiny_synth.npz").exists(),
+                    reason="trained ASR asset not built")
+def test_vad_filtered_transcribe_matches_jax(tmp_path, monkeypatch):
+    """With the VAD filter on (the default, learned backend under
+    "auto"), both packages transcribe the same speech spans: the same
+    segments, word times within 0.02 s, chunks and rankings."""
+    path = tmp_path / "lecture.wav"
+    write_wav(path, _gap_audio(), SR)
+    switches = {"vad_filter": True, "vad_backend": "auto"}
+    jax_segments, jax_chunks, jax_ranks = _run_jax(path, switches,
+                                                   monkeypatch)
+    segments, chunks, ranks = _run_port(path, switches, monkeypatch)
+    _assert_same_times(segments, jax_segments)
+    assert len(segments) >= 2 and segments[0][1] > 0.3  # spans, not 0 s
+    assert [c[0] for c in chunks] == [c[0] for c in jax_chunks]
+    assert ranks == jax_ranks
+    assert ASRConfig().vad_filter and ASRConfig().vad_backend == "auto"
 
 
 # -- entry points ---------------------------------------------------------------
@@ -173,12 +282,6 @@ def test_entry_points_refuse_a_missing_card(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ConfigError, match="unsupported"):
         resolve_device("meta")
-
-
-def test_diarization_is_refused():
-    rag = AudioRAG(AudioRAGConfig(device="cpu"))
-    with pytest.raises(ConfigError, match="diariz"):
-        rag.ingest(np.zeros(SR, np.float32), sample_rate=SR, diarize=True)
 
 
 # -- import isolation ---------------------------------------------------------------
