@@ -20,15 +20,32 @@ does. The decode strategy is chosen as the JAX backend's ``_program``
 chooses it: beam search under ``decode="beam"`` (its avg-logprob and
 no-speech probability are 0, so the no-speech gate never drops a window);
 else speculative greedy under ``speculative_k > 0`` with a prompt of ≤ 16
-tokens; else greedy. Beam and speculative ignore ``self_kv_int8``. Not
-ported here: temperature fallback, language detection, conditioning on
-previous text, the HF tokenizer's word map (without one every token is a
-word, as in the JAX backend).
+tokens; else greedy. Beam and speculative ignore ``self_kv_int8``.
+
+Under greedy decoding the temperature-fallback ladder
+(``temperature_fallback``) decodes the whole padded batch again at each of
+``fallback_temperatures`` while a real window still fails a quality gate
+(average log-probability below ``logprob_threshold``, or its text
+compressing more than ``compression_ratio_threshold`` times); only the
+failing rows take the sampled tokens (a row's sample depends on the batch
+size, so the batch stays whole). The retries sample plain greedy with
+JAX's PRNG seeded ``int(temperature * 100)``, never speculative or beam.
+Pad rows never start a retry: their tokens are dropped either way. With no
+language given, a vocabulary of 51,865 tokens or more detects one from
+the first window (:meth:`WhisperASR.detect_language`); an unknown code
+falls back to "en" with a warning. ``condition_on_previous_text`` decodes
+the windows one at a time, each prompt ``<|startofprev|>`` + the tokens
+decoded since the last reset (cut down to a bucket length) + the SOT
+sequence. Not ported here: the HF tokenizer's word map (without one every
+token is a word, as in the JAX backend), ``transcribe_chunk_batch`` and
+``detect_language_rows`` (streaming).
 """
 
 from __future__ import annotations
 
+import logging
 import time
+import zlib
 from typing import Any
 
 import numpy as np
@@ -43,6 +60,7 @@ from audio_rag_tpu_torch.core.exceptions import TranscriptionError
 from audio_rag_tpu_torch.core.types import TranscriptSegment, Word
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.models.whisper import (
+    WHISPER_LANGUAGES,
     WHISPER_PRESETS,
     SpecialTokens,
     WhisperDims,
@@ -50,6 +68,7 @@ from audio_rag_tpu_torch.models.whisper import (
     char_decode,
     cross_kv_layer,
     decoder_forward,
+    detect_language,
     encode,
     greedy_decode,
     init_whisper,
@@ -57,23 +76,32 @@ from audio_rag_tpu_torch.models.whisper import (
     quantize_decoder_weights,
     speculative_greedy_decode,
 )
+from audio_rag_tpu_torch.ops import random as jrandom
 from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_batch
 from audio_rag_tpu_torch.weights import whisper_params
 
-__all__ = ["WhisperASR", "interpolate_words"]
+log = logging.getLogger(__name__)
+
+__all__ = ["WhisperASR", "interpolate_words", "compression_ratio"]
 
 MAX_NEW_TOKENS = 224  # ≤ n_text_ctx/2, as Whisper decodes per window
+N_SAMPLES = 30 * SAMPLE_RATE  # the audio language detection reads
 
 
 class WhisperASR:
     """Batched-window Whisper on one device.
 
     ``timings`` accumulates, per :meth:`transcribe` call, host-clock seconds
-    of the VAD, mel, encode, decode and word-alignment stages (each ends
-    in a device synchronize or a copy to the host on CUDA; ``align_s``
-    is the teacher-forced pass and the host DTW, ``dtw_s`` the DTW
-    alone), the decode-loop iterations run (greedy steps, beam steps or
-    speculative verify passes) and the windows and batches seen.
+    of the VAD, language detection, mel, encode, decode and word-alignment
+    stages (each ends in a device synchronize or a copy to the host on
+    CUDA; ``align_s`` is the teacher-forced pass and the host's word
+    times, ``dtw_s`` the host's part alone: median filter, DTW and path
+    walk), the decode-loop iterations run (greedy
+    steps, beam steps or speculative verify passes) and the windows and
+    batches seen; the fallback ladder's sampled decodes are counted apart
+    (``fallback_decodes``, ``fallback_steps``, ``fallback_s``).
+    ``window_temps`` holds each real window's final temperature (0.0
+    unless the ladder replaced its tokens), in order.
     """
 
     def __init__(self, config: ASRConfig | None = None,
@@ -100,6 +128,7 @@ class WhisperASR:
         self._params = None
         self._params_q8 = None
         self.timings: dict[str, float] = {}
+        self.window_temps: list[float] = []
         self._decode_text = (char_decode if size == "tiny-synth"
                              else lambda ids: " ".join(f"tok{int(i)}"
                                                        for i in ids))
@@ -152,9 +181,12 @@ class WhisperASR:
                    language: str | None = None) -> list[TranscriptSegment]:
         if not self.is_loaded:
             self.load()
-        self.timings = {"vad_s": 0.0, "mel_s": 0.0, "encode_s": 0.0,
-                        "decode_s": 0.0, "align_s": 0.0, "dtw_s": 0.0,
-                        "decode_steps": 0, "windows": 0, "batches": 0}
+        self.timings = {"vad_s": 0.0, "detect_s": 0.0, "mel_s": 0.0,
+                        "encode_s": 0.0, "decode_s": 0.0, "align_s": 0.0,
+                        "dtw_s": 0.0, "decode_steps": 0, "windows": 0,
+                        "batches": 0, "fallback_decodes": 0,
+                        "fallback_steps": 0, "fallback_s": 0.0}
+        self.window_temps = []
         wav, sr = decode_audio(audio, sample_rate)
         if wav.size == 0:
             return []
@@ -181,24 +213,59 @@ class WhisperASR:
         if not windows:
             return []
 
-        lang = language or self.config.language or "en"
-        try:
-            lang_off = language_offset(lang)
-        except ValueError:
-            lang, lang_off = "en", 0
+        lang = language or c.language
+        lang_off = 0
+        if lang:
+            try:
+                lang_off = language_offset(lang)
+            except ValueError:
+                log.warning("unknown language %r; defaulting to en", lang)
+                lang = "en"
+        elif self.dims.n_vocab >= 51865:
+            # detected from the first 30 s of the file, as the JAX backend
+            t0 = time.perf_counter()
+            lang_off, prob = self.detect_language(wav[:N_SAMPLES], sr)
+            self.timings["detect_s"] = time.perf_counter() - t0
+            lang = WHISPER_LANGUAGES[lang_off]
+            log.info("detected language %s (p=%.2f)", lang, prob)
+        else:
+            lang = "en"
 
-        segments: list[TranscriptSegment] = []
-        bs = self.config.window_batch_size
-        pad_to = bs if len(windows) > bs else None
-        for i in range(0, len(windows), bs):
-            segments.extend(self._transcribe_batch(
-                windows[i: i + bs], lang, lang_off, pad_to,
-                want_words=word_timestamps))
+        if c.condition_on_previous_text:
+            segments = self._transcribe_conditioned(
+                windows, lang, lang_off, want_words=word_timestamps)
+        else:
+            segments = []
+            bs = c.window_batch_size
+            pad_to = bs if len(windows) > bs else None
+            for i in range(0, len(windows), bs):
+                segments.extend(self._transcribe_batch(
+                    windows[i: i + bs], lang, lang_off, pad_to,
+                    want_words=word_timestamps))
         if word_timestamps:
             for seg in segments:
                 if not seg.words:
                     seg.words = interpolate_words(seg)
         return segments
+
+    @torch.inference_mode()
+    def detect_language(self, audio: np.ndarray | str,
+                        sample_rate: int | None = None) -> tuple[int, float]:
+        """(language offset from ``<|en|>``, its probability) of the
+        audio's first window: zero-padded or cut to the model's window,
+        its log-mel, the encoder, one decoder step over ``<|sot|>``."""
+        if not self.is_loaded:
+            self.load()
+        wav, _ = decode_audio(audio, sample_rate)
+        n = 2 * self.dims.n_audio_ctx * HOP_LENGTH
+        window = np.zeros((1, n), np.float32)
+        window[0, : min(len(wav), n)] = wav[:n]
+        mel = log_mel_batch(torch.from_numpy(window).to(self.device),
+                            n_mels=self.dims.n_mels)
+        enc = encode(self._params, self.dims, mel, dtype=self.dtype)
+        lang, prob = detect_language(self._params, self.dims, enc,
+                                     self.tokens, self.dtype)
+        return int(lang[0]), float(prob[0])
 
     def transcribe_with_words(self, audio: np.ndarray | str,
                               sample_rate: int | None = None,
@@ -210,11 +277,53 @@ class WhisperASR:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _prompt_buckets(self) -> list[int]:
+        """History lengths a conditioned prompt may carry: the history is
+        cut DOWN to one of these, as the JAX backend cuts it (up to
+        faster-whisper's cap of n_text_ctx/2 − 1 tokens)."""
+        cap = self.dims.n_text_ctx // 2 - 1
+        return sorted({b for b in (4, 8, 16, 32, 64, 128, cap) if b <= cap})
+
+    def _transcribe_conditioned(self, windows: list[tuple[float, np.ndarray]],
+                                lang: str, lang_off: int, want_words: bool
+                                ) -> list[TranscriptSegment]:
+        """``condition_on_previous_text``: windows one at a time, each
+        prompted with ``<|startofprev|>`` + the last bucket's worth of the
+        tokens decoded since the last reset; a window whose final
+        temperature exceeds ``prompt_reset_on_temperature`` resets the
+        history."""
+        cap = self.dims.n_text_ctx // 2 - 1
+        buckets = self._prompt_buckets()
+        history: list[int] = []
+        reset_since = 0
+        segments: list[TranscriptSegment] = []
+        for t0, seg in windows:
+            prev = history[reset_since:][-cap:]
+            prev_ids = None
+            if prev:
+                b = max((b for b in buckets if b <= len(prev)), default=None)
+                if b:
+                    prev_ids = prev[-b:]
+            segs, meta = self._transcribe_batch(
+                [(t0, seg)], lang, lang_off, None, want_words=want_words,
+                prev_ids=prev_ids, return_meta=True)
+            segments.extend(segs)
+            history.extend(meta["clean_ids"][0])
+            if float(meta["final_temp"][0]) > \
+                    self.config.prompt_reset_on_temperature:
+                reset_since = len(history)
+        return segments
+
     @torch.inference_mode()
     def _transcribe_batch(self, windows: list[tuple[float, np.ndarray]],
                           lang: str, lang_off: int, pad_to: int | None,
-                          want_words: bool = False
-                          ) -> list[TranscriptSegment]:
+                          want_words: bool = False,
+                          prev_ids: list[int] | None = None,
+                          return_meta: bool = False):
+        """Segments of a window batch; with ``return_meta`` also
+        ``{"clean_ids", "final_temp"}`` per window (the conditioned
+        path's history and reset rule). ``prev_ids`` (one window) puts
+        ``<|startofprev|>`` + them before the SOT sequence."""
         n_real = len(windows)
         B = max(pad_to or 0, n_real)  # zero windows pad the tail batch
         n_samples = 2 * self.dims.n_audio_ctx * HOP_LENGTH
@@ -232,12 +341,17 @@ class WhisperASR:
         t2 = time.perf_counter()
 
         st = self.tokens
-        prompt = np.tile(np.array([[st.sot, st.lang_base, st.transcribe,
-                                    st.no_timestamps]], np.int64), (B, 1))
-        prompt[:n_real, 1] += lang_off  # per-row language (pad rows: en)
+        sot_seq = [st.sot, st.lang_base, st.transcribe, st.no_timestamps]
+        if prev_ids:
+            if B != 1:
+                raise ValueError("conditioned prompts run one window")
+            prompt = np.array([[st.sot_prev, *prev_ids, *sot_seq]], np.int64)
+        else:
+            prompt = np.tile(np.array([sot_seq], np.int64), (B, 1))
         P = prompt.shape[1]
-        toks, avg_lp, no_speech, steps = self._decode(
-            enc, torch.from_numpy(prompt).to(self.device))
+        prompt[:n_real, P - 3] += lang_off  # per-row language (pad rows: en)
+        prompt_t = torch.from_numpy(prompt).to(self.device)
+        toks, avg_lp, no_speech, steps = self._decode(enc, prompt_t)
         tokens = toks.cpu().numpy()
         avg_lp = avg_lp.cpu().numpy()
         no_speech = no_speech.cpu().numpy()
@@ -249,9 +363,33 @@ class WhisperASR:
         self.timings["windows"] += n_real
         self.timings["batches"] += 1
 
+        # the fallback ladder: retry the whole batch at each temperature
+        # while a real window fails a gate; failing rows take the retry's
+        # tokens whether they pass or not
+        final_temp = np.zeros(B, np.float32)
+        c = self.config
+        if c.temperature_fallback and c.decode == "greedy":
+            failed = self._gates_failed(tokens, avg_lp, P)
+            failed[n_real:] = False
+            for temp in c.fallback_temperatures:
+                if not failed.any():
+                    break
+                t4 = time.perf_counter()
+                t_toks, t_lp, _, t_steps = self._decode(enc, prompt_t,
+                                                        float(temp))
+                t_toks, t_lp = t_toks.cpu().numpy(), t_lp.cpu().numpy()
+                self.timings["fallback_s"] += time.perf_counter() - t4
+                self.timings["fallback_decodes"] += 1
+                self.timings["fallback_steps"] += t_steps
+                tokens[failed] = t_toks[failed]
+                avg_lp[failed] = t_lp[failed]
+                final_temp[failed] = temp
+                failed &= self._gates_failed(tokens, avg_lp, P)
+        self.window_temps.extend(float(t) for t in final_temp[:n_real])
+
         # Whisper's no-speech gate: high p(no_speech) AND low confidence
-        silent = ((no_speech > self.config.no_speech_threshold)
-                  & (avg_lp < self.config.logprob_threshold))
+        silent = ((no_speech > c.no_speech_threshold)
+                  & (avg_lp < c.logprob_threshold))
 
         # word times: one teacher-forced pass over every real row's text
         # tokens (pad rows stay empty so that they do not widen the token
@@ -266,11 +404,13 @@ class WhisperASR:
             self.timings["align_s"] += time.perf_counter() - t4
 
         out: list[TranscriptSegment] = []
+        clean_ids: list[list[int]] = []
         dtw_before = self.timings["dtw_s"]
         for j, (t0w, seg_audio) in enumerate(windows):
+            text_ids = self._strip_special(tokens[j], P)
+            clean_ids.append([] if silent[j] else text_ids)
             if silent[j]:
                 continue
-            text_ids = self._strip_special(tokens[j], P)
             dur = len(seg_audio) / SAMPLE_RATE
             segs = self._tokens_to_segments(text_ids, t0w, dur, lang)
             for s in segs:
@@ -282,7 +422,27 @@ class WhisperASR:
                 self.timings["dtw_s"] += time.perf_counter() - t4
             out.extend(segs)
         self.timings["align_s"] += self.timings["dtw_s"] - dtw_before
+        if return_meta:
+            return out, {"clean_ids": clean_ids, "final_temp": final_temp}
         return out
+
+    def _gates_failed(self, tokens: np.ndarray, avg_lp: np.ndarray,
+                      prompt_len: int) -> np.ndarray:
+        """Per row: True where the average log-probability is below
+        ``logprob_threshold`` or the text (without timestamp tokens)
+        compresses more than ``compression_ratio_threshold`` times."""
+        failed = avg_lp < self.config.logprob_threshold
+        thr = self.config.compression_ratio_threshold
+        if thr:
+            for j in range(tokens.shape[0]):
+                if failed[j]:
+                    continue
+                text = self._decode_text([
+                    i for i in self._strip_special(tokens[j], prompt_len)
+                    if i < self.tokens.timestamp_base])
+                if compression_ratio(text) > thr:
+                    failed[j] = True
+        return failed
 
     @torch.inference_mode()
     def _collect_cross_weights(self, enc: torch.Tensor, prompt: np.ndarray,
@@ -344,9 +504,12 @@ class WhisperASR:
         character k's time), the JAX backend's fallback."""
         return list(range(len(ids)))
 
-    def _decode(self, enc: torch.Tensor, prompt: torch.Tensor):
+    def _decode(self, enc: torch.Tensor, prompt: torch.Tensor,
+                temperature: float = 0.0):
         """(tokens, avg_logprob, no_speech_prob, loop iterations) of the
-        configured strategy."""
+        configured strategy; at a temperature above 0, plain greedy
+        sampled from ``PRNGKey(int(temperature * 100))`` (Python's float
+        product and truncation: 0.29 gives 28)."""
         c, st = self.config, self.tokens
         B, P = prompt.shape
         max_new = min(self._max_new(), self.dims.n_text_ctx - P)
@@ -354,19 +517,21 @@ class WhisperASR:
                       cross_kv_quantize=bool(self.cross_kv_bits),
                       cross_kv_bits=self.cross_kv_bits or 8,
                       decoder_q8=self._params_q8)
-        if c.decode == "beam":
+        if c.decode == "beam" and temperature <= 0.0:
             toks, steps = beam_decode(
                 self._params, self.dims, enc, prompt, max_new, st.eot,
                 beam_size=c.beam_size, **common)
             zeros = torch.zeros((B,), device=enc.device)
             return toks, zeros, zeros, steps
-        if c.speculative_k > 0 and P <= 16:
+        if c.speculative_k > 0 and P <= 16 and temperature <= 0.0:
             return speculative_greedy_decode(
                 self._params, self.dims, enc, prompt, max_new, st.eot,
                 spec_k=c.speculative_k, no_speech_id=st.no_speech, **common)
         toks, avg_lp, no_speech = greedy_decode(
             self._params, self.dims, enc, prompt, max_new, st.eot,
-            no_speech_id=st.no_speech, self_kv_int8=c.self_kv_int8, **common)
+            no_speech_id=st.no_speech, self_kv_int8=c.self_kv_int8,
+            temperature=temperature,
+            rng=jrandom.PRNGKey(int(temperature * 100)), **common)
         return (toks, avg_lp, no_speech,
                 _loop_steps(toks.cpu().numpy(), P, st.eot))
 
@@ -416,6 +581,15 @@ class WhisperASR:
                 language=lang,
             ))
         return out
+
+
+def compression_ratio(text: str) -> float:
+    """UTF-8 bytes over their zlib-compressed bytes (default level):
+    Whisper's repetition gate; 0.0 for empty text."""
+    data = text.encode("utf-8")
+    if not data:
+        return 0.0
+    return len(data) / len(zlib.compress(data))
 
 
 def _loop_steps(tokens: np.ndarray, prompt_len: int, eot: int) -> int:

@@ -1,8 +1,21 @@
 """The port's own configuration: plain dataclasses holding the ASR,
 diarization, alignment, embedding, retrieval and chunking fields the
-ported slice uses, plus the device. Field names and defaults follow ``audio_rag_tpu/config/schema.py``;
-that schema cannot name a torch backend or a CUDA device, so the port does
-not reuse it.
+ported slice uses, plus the device.
+
+Every field a dataclass shares with ``audio_rag_tpu/config/schema.py`` has
+the schema's name, default and bounds: ``AudioRAG()`` runs Whisper
+large-v3 (seeded weights: no checkpoint is in the repository) with the
+temperature-fallback ladder on and the language detected, and the BGE-M3
+embedder at XLM-R large shapes (seeded, as the JAX embedder starts without
+files). A caller who wants the committed trained models names them
+(``model_size="tiny-synth"``, ``model="eval-small"``); one who wants greedy
+decoding at temperature 0 only passes ``temperature_fallback=False``, and
+``language="en"`` skips the detection. The departures: that schema cannot
+name a torch backend or a CUDA device, so the port does not reuse it; the
+port has no ``backend``, per-section ``device``, ``checkpoint_path`` (no
+converted checkpoint is read) or ``mel_sharded`` (one device: each
+window's mel is clamped alone) field; it adds the weight ``seed`` of the
+presets without an asset and ``AudioRAGConfig.device``.
 """
 
 from __future__ import annotations
@@ -26,7 +39,7 @@ __all__ = [
 class ASRConfig:
     #: a ``models.whisper.WHISPER_PRESETS`` key; "tiny-synth" loads the
     #: committed trained asset, other sizes start from seeded weights
-    model_size: str = "tiny-synth"
+    model_size: str = "large-v3"
     #: "bfloat16" = bf16 storage and compute, "float32" = fp32 throughout
     compute_type: str = "bfloat16"
     #: transcribe only the VAD's speech spans
@@ -35,6 +48,8 @@ class ASRConfig:
     #: "auto" = the learned VAD when its weights load and the audio is
     #: 16 kHz, else the energy gate; "learned" or "energy"
     vad_backend: str = "auto"
+    #: None: detected from the first window on vocabularies of 51,865
+    #: tokens or more (large-v3 included), else "en"
     language: str | None = None
     #: windows decoded together in one batch
     window_batch_size: int = 8
@@ -65,8 +80,21 @@ class ASRConfig:
     #: greedy decode in verify blocks of this many tokens against the
     #: n-gram drafter (same tokens as plain greedy); 0 disables, ≤ 8
     speculative_k: int = 0
-    no_speech_threshold: float = 0.6
+    #: greedy only: a window whose average log-probability is below
+    #: ``logprob_threshold`` or whose text compresses (zlib) more than
+    #: ``compression_ratio_threshold`` times is decoded again by sampling
+    #: at each temperature in turn while it still fails
+    temperature_fallback: bool = True
+    fallback_temperatures: list[float] = field(
+        default_factory=lambda: [0.2, 0.4])
     logprob_threshold: float = -1.0
+    compression_ratio_threshold: float = 2.4
+    no_speech_threshold: float = 0.6
+    #: prime each window's prompt with ``<|startofprev|>`` and the tokens
+    #: decoded since the last reset (windows then decode one at a time)
+    condition_on_previous_text: bool = False
+    #: reset that history after a window whose final temperature is above
+    prompt_reset_on_temperature: float = 0.5
     #: seed of the weights of presets without a committed asset
     seed: int = 0
 
@@ -81,9 +109,19 @@ class ASRConfig:
             raise ConfigError(f"speculative_k must be in [0, 8], got "
                               f"{self.speculative_k}")
         _check_vad(self.vad_backend)
-        if not 0.0 <= self.vad_threshold <= 1.0:
-            raise ConfigError(f"vad_threshold must be in [0, 1], got "
-                              f"{self.vad_threshold}")
+        for name in ("vad_threshold", "no_speech_threshold"):
+            if not 0.0 <= getattr(self, name) <= 1.0:
+                raise ConfigError(f"{name} must be in [0, 1], got "
+                                  f"{getattr(self, name)}")
+        if self.prompt_reset_on_temperature < 0.0:
+            raise ConfigError(f"prompt_reset_on_temperature must be ≥ 0, "
+                              f"got {self.prompt_reset_on_temperature}")
+        if self.window_batch_size < 1:
+            raise ConfigError(f"window_batch_size must be ≥ 1, got "
+                              f"{self.window_batch_size}")
+        if self.max_decode_tokens is not None and self.max_decode_tokens < 8:
+            raise ConfigError(f"max_decode_tokens must be ≥ 8, got "
+                              f"{self.max_decode_tokens}")
 
 
 def _check_vad(backend: str) -> None:
@@ -141,8 +179,9 @@ class ChunkingConfig:
 @dataclass
 class EmbeddingConfig:
     #: "eval-small" loads the committed trained asset; "test" and other
-    #: names (XLM-R large shapes) start from seeded weights
-    model: str = "eval-small"
+    #: names, the default "BAAI/bge-m3" among them (XLM-R large shapes),
+    #: start from seeded weights, as the JAX embedder does without files
+    model: str = "BAAI/bge-m3"
     batch_size: int = 32
     use_sparse: bool = True
     max_length: int = 512

@@ -10,8 +10,9 @@ pass with the head-averaged cross weights of the upper layers),
 :func:`_cross_with_kv`, :func:`quantize_decoder_weights` (8 or 4 bits, or
 int8 blocks with an int4 logits head), :func:`quantize_self_cache`,
 :func:`decoder_step` (greedy, beams in the physical or lazy-ancestry
-layout, or the int8 self cache), :func:`greedy_decode`,
-:func:`ngram_draft`, :func:`decoder_block_verify`,
+layout, or the int8 self cache), :func:`greedy_decode` (argmax, or at a
+temperature sampled with JAX's PRNG, :mod:`audio_rag_tpu_torch.ops.random`),
+:func:`detect_language`, :func:`ngram_draft`, :func:`decoder_block_verify`,
 :func:`speculative_greedy_decode` and :func:`beam_decode`, whose loop body
 is :func:`beam_step`. ``lax.scan`` and ``while_loop`` become Python loops;
 KV caches are updated in place.
@@ -55,6 +56,7 @@ from audio_rag_tpu_torch.models.layers import (
     take_layer,
 )
 from audio_rag_tpu_torch.ops import kernels
+from audio_rag_tpu_torch.ops import random as jrandom
 
 __all__ = [
     "WhisperDims",
@@ -85,6 +87,7 @@ __all__ = [
     "beam_step",
     "beam_best",
     "beam_decode",
+    "detect_language",
 ]
 
 
@@ -110,6 +113,9 @@ WHISPER_PRESETS: dict[str, WhisperDims] = {
     "large-v2": WhisperDims(80, 1500, 1280, 20, 32, 51865, 448, 1280, 20, 32),
     "large-v3": WhisperDims(128, 1500, 1280, 20, 32, 51866, 448, 1280, 20, 32),
     "test": WhisperDims(80, 60, 64, 2, 2, 1024, 32, 64, 2, 2),
+    # the test shapes with the multilingual v2 vocabulary (language
+    # detection and per-row language tokens at test size)
+    "test-ml": WhisperDims(80, 60, 64, 2, 2, 51865, 32, 64, 2, 2),
     # the committed trained tiny ASR: 6 s windows, char-level vocab
     "tiny-synth": WhisperDims(128, 300, 128, 4, 3, 64, 128, 128, 4, 3),
 }
@@ -785,17 +791,26 @@ def greedy_decode(
     decoder_q8: Params | None = None,
     cross_kv_bits: int = 8,
     self_kv_int8: bool = False,
+    temperature: float = 0.0,
+    rng: jrandom.Key | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched greedy decode with a static KV cache.
+    """Batched greedy or sampled decode with a static KV cache.
 
     Returns (tokens (B, P+max_new), avg_logprob (B,), no_speech_prob (B,)),
     positions past EOT filled with ``eot``, as the JAX package's
-    ``greedy_decode`` at temperature 0. ``cross_kv_bits`` (8 or 4) picks
-    the quantized cross K/V; ``decoder_q8`` is a
-    :func:`quantize_decoder_weights` tree; the prompt primes as
-    :func:`prime_decode` says. ``self_kv_int8`` converts the primed cache
-    once (:func:`quantize_self_cache`) and runs the loop on the int8 self
-    cache.
+    ``greedy_decode``. ``cross_kv_bits`` (8 or 4) picks the quantized
+    cross K/V; ``decoder_q8`` is a :func:`quantize_decoder_weights` tree;
+    the prompt primes as :func:`prime_decode` says. ``self_kv_int8``
+    converts the primed cache once (:func:`quantize_self_cache`) and runs
+    the loop on the int8 self cache.
+
+    ``temperature > 0`` samples each token as the JAX package draws it
+    from ``rng`` (a :func:`ops.random.PRNGKey`, default seed 0): the first
+    from ``split(rng)``'s first key, each later one from the first key of
+    a further split, by ``categorical`` on the f32 log-softmax times the
+    f32 reciprocal of the temperature (XLA compiles the JAX backend's
+    division by the constant so); finished rows still emit EOT, and the
+    average log-probability is of the chosen tokens.
     """
     B, P = prompt.shape
     total = P + max_new_tokens
@@ -805,8 +820,21 @@ def greedy_decode(
         decoder_q8, cross_kv_quantize, cross_kv_bits)
     no_speech_prob = _no_speech(step0, no_speech_id)
 
+    if temperature > 0.0:
+        inv_t = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
+            temperature, dtype=torch.float32)
+        inv_t = inv_t.to(device)
+        rng = jrandom.PRNGKey(0) if rng is None else rng
+
+    def pick(logp: torch.Tensor) -> torch.Tensor:
+        nonlocal rng
+        if temperature <= 0.0:
+            return torch.argmax(logp, dim=-1)
+        key, rng = jrandom.split(rng)
+        return jrandom.categorical(key, logp * inv_t)
+
     rows = torch.arange(B, device=device)
-    first = torch.argmax(step0, dim=-1)
+    first = pick(step0)
     sum_lp = step0[rows, first]
     tokens = torch.full((B, total), eot, dtype=torch.long, device=device)
     tokens[:, :P] = prompt
@@ -823,7 +851,7 @@ def greedy_decode(
             params, dims, tokens[:, i:i + 1], cross_kv, i, cache,
             dtype=dtype, q8=decoder_q8, self_kv_int8=self_kv_int8)
         logp = torch.log_softmax(logits.float(), dim=-1)
-        nxt = torch.argmax(logp, dim=-1)
+        nxt = pick(logp)
         nxt = torch.where(finished, torch.full_like(nxt, eot), nxt)
         lp = logp[rows, nxt]
         sum_lp = sum_lp + torch.where(finished, 0.0, lp)
@@ -832,6 +860,24 @@ def greedy_decode(
         finished = finished | (nxt == eot)
         i += 1
     return tokens, sum_lp / torch.clamp(n_decoded, min=1.0), no_speech_prob
+
+
+@torch.inference_mode()
+def detect_language(params: Params, dims: WhisperDims, enc: torch.Tensor,
+                    st: SpecialTokens, dtype: torch.dtype = torch.bfloat16
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(language offset from ``st.lang_base`` (B,), its probability (B,))
+    from one decoder step over ``<|sot|>``: the softmax of the first-step
+    logits over the language block [lang_base, translate) (99 tokens on
+    the v2 vocabulary, 100 on large-v3's)."""
+    B = enc.shape[0]
+    ckv = precompute_cross_kv(params, dims, enc, dtype)
+    sot = torch.full((B, 1), st.sot, dtype=torch.long, device=enc.device)
+    logits, _ = decoder_forward(params, dims, sot, ckv, dtype=dtype)
+    lang = logits[:, 0, st.lang_base: st.translate]
+    probs = torch.softmax(lang.float(), dim=-1)
+    best = torch.argmax(probs, dim=-1)
+    return best, probs[torch.arange(B, device=enc.device), best]
 
 
 # -- speculative greedy decode ------------------------------------------------

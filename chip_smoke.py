@@ -72,12 +72,32 @@ subset):
               conversation (more than one 512-window embedding batch and
               one 128-clip VAD batch): VAD, embedding and clustering ms,
               windows, diarization seconds per audio second and peak
-              memory.
+              memory;
+9. fallback — the rest of greedy transcription: (a) the port's JAX PRNG
+              at (16, 51866) on the card against the CPU (bits equal,
+              Gumbel noise within 2 ulp of max(|g|, 1), the same
+              ``categorical`` draws); (b) the ``test`` preset (seeded
+              weights that fail the log-probability gate) through
+              ``transcribe`` with the temperature-fallback ladder on, on
+              the card and the CPU: the same final temperature per window
+              and the same tokens; (c) large-v3 in the production profile
+              with the port's defaults (ladder on, no language) on 4
+              windows: the detected language against the plain path,
+              each rung's ms, loop iterations and kernel launches;
+              (d) ``condition_on_previous_text`` on 3 large-v3 windows,
+              which must prime a prompt longer than 16 tokens: ms per
+              window.
 
-``diarize`` runs right after ``spine``. The spine ingests with
+The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
+g++ into ``build/native/``) is built or loaded right after the kernels;
+the script fails without it, so the word-time DTW of every ingest runs in
+C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``.
+The spine, the diarized ingest and the large-v3 paths other than
+``fallback`` run with the fallback ladder off and, at large-v3, in
+English, as ``bench.py`` measures. The spine ingests with
 diarization and the VAD filter off (one chunk per 6 s window). The
-large-v3 ingests of ``full``, ``full_kv4`` and ``beam`` run with the port's
-defaults, DTW word times from the teacher-forced alignment pass and
+large-v3 ingests of ``full``, ``full_kv4`` and ``beam`` run as ``ingest``
+does by default: DTW word times from the teacher-forced alignment pass and
 diarization (learned VAD, speaker embeddings, spectral clustering) with
 word → speaker alignment, but with the VAD filter off so that the window
 count is fixed; each prints the alignment pass's seconds, the ``diarize``
@@ -889,7 +909,8 @@ def spine_config(device: str, profile: str):
 
     return AudioRAGConfig(
         asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
-                      vad_filter=False, **PROFILES[profile][0]),
+                      vad_filter=False, temperature_fallback=False,
+                      **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
         # small max_tokens: each 6 s window's segment becomes its own chunk
@@ -1060,7 +1081,8 @@ def run_diarized(device: str, wav_path: Path) -> dict:
 
     rag = AudioRAG(AudioRAGConfig(
         asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
-                      vad_filter=False, **PROFILES[DIAR_PROFILE][0]),
+                      vad_filter=False, temperature_fallback=False,
+                      **PROFILES[DIAR_PROFILE][0]),
         diarization=DiarizationConfig(max_speakers=2),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
@@ -1217,14 +1239,250 @@ def phase_diarize(torch, K, workdir: Path) -> dict:
     return {tag: launches}
 
 
-def large_v3_config(device: str, profile: str, window_batch: int):
+# -- phase 9: the fallback ladder, language detection, conditioned windows ---------
+
+FALLBACK_PROFILE = "int8"
+GUMBEL_ULPS = 2  # of max(|g|, 1): the card's log against the host's
+
+
+def check_prng(torch) -> dict:
+    """(a) The port's JAX PRNG at the large-v3 decode shape (16, 51866) on
+    the card against the CPU: bits equal, Gumbel noise within 2 ulp of
+    max(|g|, 1), and the draws of ``categorical`` on the same logits."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.ops import random as R
+
+    shape, key = (16, 51866), R.split(R.PRNGKey(40))[1]
+    bits = R.random_bits(key, shape, "cuda").cpu()
+    same_bits = torch.equal(bits, R.random_bits(key, shape, "cpu"))
+    g_card = R.gumbel(key, shape, "cuda").cpu().numpy()
+    g_cpu = R.gumbel(key, shape, "cpu").numpy()
+    ulps = np.abs(g_card - g_cpu) / np.spacing(
+        np.maximum(np.abs(g_cpu), 1.0).astype(np.float32))
+    logits = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    logp = torch.log_softmax(logits * 3.0, dim=-1)
+    draws_card = R.categorical(key, logp.cuda()).cpu()
+    draws_cpu = R.categorical(key, logp)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        R.categorical(key, logp.cuda())
+    torch.cuda.synchronize()
+    out = {"shape": list(shape), "bits_equal": bool(same_bits),
+           "gumbel_max_ulps": float(ulps.max()),
+           "gumbel_elements_off": int((ulps > 0).sum()),
+           "draws_equal": int((draws_card == draws_cpu).sum()),
+           "rows": shape[0],
+           "categorical_host_ms": (time.perf_counter() - t0) / 20 * 1e3}
+    print("fallback[prng]", json.dumps(out), flush=True)
+    if not same_bits or not out["gumbel_max_ulps"] <= GUMBEL_ULPS or \
+            out["draws_equal"] != shape[0]:
+        fail(f"fallback[prng]: the card's draws differ from the CPU's: {out}")
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def run_test_ladder(device: str, params, audio) -> dict:
+    """The ``test`` preset (f32) with the ladder on and no language: the
+    windows' final temperatures and segment texts (the token ids)."""
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+    from audio_rag_tpu_torch.config import ASRConfig
+
+    asr = WhisperASR(ASRConfig(model_size="test", compute_type="float32",
+                               vad_filter=False, window_batch_size=4),
+                     device)
+    asr._params = _to(params, device)
+    segs = asr.transcribe(audio, 16_000)
+    return {"temps": asr.window_temps, "texts": [s.text for s in segs],
+            "decodes": asr.timings["fallback_decodes"]}
+
+
+def spy_rungs(torch, K, asr, rungs: list) -> None:
+    """Record each ``_decode`` call of ``asr``: temperature, prompt length,
+    host ms (synchronized), loop iterations and its kernel launches."""
+    decode = asr._decode
+
+    def spy(enc, prompt, temperature=0.0):
+        torch.cuda.synchronize()
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        out = decode(enc, prompt, temperature)
+        torch.cuda.synchronize()
+        rungs.append({
+            "temperature": temperature, "prompt_len": int(prompt.shape[1]),
+            "rows": int(prompt.shape[0]),
+            "ms": (time.perf_counter() - t0) * 1e3, "steps": int(out[3]),
+            "launches": {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                         if K.LAUNCHES[k] > before[k]}})
+        return out
+
+    asr._decode = spy
+
+
+def language_probs(torch, asr, wav):
+    """The language block's probabilities of ``asr.detect_language``'s
+    computation (the first window, ``<|sot|>``), all of them, on the host."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.models.whisper import (
+        decoder_forward, encode, precompute_cross_kv)
+    from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, log_mel_batch
+
+    dims, st = asr.dims, asr.tokens
+    n = 2 * dims.n_audio_ctx * HOP_LENGTH
+    win = np.zeros((1, n), np.float32)
+    win[0, : min(len(wav), n)] = wav[:n]
+    with torch.inference_mode():
+        mel = log_mel_batch(torch.from_numpy(win).to(asr.device),
+                            n_mels=dims.n_mels)
+        enc = encode(asr._params, dims, mel, dtype=asr.dtype)
+        ckv = precompute_cross_kv(asr._params, dims, enc, asr.dtype)
+        sot = torch.full((1, 1), st.sot, device=asr.device)
+        logits, _ = decoder_forward(asr._params, dims, sot, ckv,
+                                    dtype=asr.dtype)
+        probs = torch.softmax(
+            logits[0, 0, st.lang_base: st.translate].float(), dim=-1)
+    return probs.cpu()
+
+
+def phase_fallback(torch, K) -> dict:
+    """(a) the PRNG on the card; (b) the ``test`` preset's ladder on the
+    card against the CPU; (c) large-v3 in the production profile with the
+    port's defaults (ladder on, language detected) on 4 windows: the
+    detected language against the plain path, the rungs and their
+    launches; (d) ``condition_on_previous_text`` on 3 large-v3 windows.
+    Returns launches by path."""
+    import numpy as np
+
+    from audio_rag_tpu_torch import native
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+    from audio_rag_tpu_torch.models.whisper import (
+        WHISPER_LANGUAGES, WHISPER_PRESETS, init_whisper)
+
+    if not native.native_available():
+        fail("fallback: the native audio runtime did not load")
+    print(f"fallback native library {native.lib_path()}", flush=True)
+    check_prng(torch)
+
+    # (b) seeded test weights made once on the host, copied to the card
+    params = init_whisper(WHISPER_PRESETS["test"], seed=0)
+    audio = (0.05 * np.random.default_rng(1).standard_normal(
+        int(7.0 * 16_000))).astype(np.float32)
+    K.reset_launches()
+    card = run_test_ladder("cuda", params, audio)
+    torch.cuda.synchronize()
+    launches_b = launch_counts(K)
+    cpu = run_test_ladder("cpu", params, audio)
+    print("fallback[test] card", json.dumps(card), flush=True)
+    print("fallback[test] cpu ", json.dumps(cpu), flush=True)
+    print("fallback[test] launches", json.dumps(launches_b), flush=True)
+    if card != cpu or not card["decodes"] or max(card["temps"]) == 0.0:
+        fail("fallback[test]: the card's ladder differs from the CPU's, or "
+             "no window climbed it")
+    check_launches("fallback[test]", launches_b, {FLASH})
+
+    # (c) large-v3, production profile, the port's defaults
+    tag = f"fallback[{FALLBACK_PROFILE}]"
+    cfg = large_v3_config("cuda", FALLBACK_PROFILE, 16, language=None,
+                          temperature_fallback=True).asr
+    asr = WhisperASR(cfg, "cuda")
+    asr.load()
+    wav = long_speech(4 * 30.0, seed=8)
+    lang = asr.detect_language(wav, 16_000)
+    with plain_kernels(K):
+        plain = language_probs(torch, asr, wav)
+    best = int(plain.argmax())
+    print(f"{tag} detected language {WHISPER_LANGUAGES[lang[0]]} "
+          f"(offset {lang[0]}, p {lang[1]:.6f}); plain path: "
+          f"{WHISPER_LANGUAGES[best]} (offset {best}, p "
+          f"{float(plain[best]):.6f}), p of the card's choice "
+          f"{float(plain[lang[0]]):.6f}", flush=True)
+    # random weights spread p over 100 languages: hold the card's choice
+    # and its p to the plain path's within 5 % of the plain maximum
+    tol = 0.05 * float(plain[best])
+    if float(plain[lang[0]]) < float(plain[best]) - tol or \
+            abs(lang[1] - float(plain[lang[0]])) > tol:
+        fail(f"{tag}: detected language disagrees with the plain path")
+    rungs: list = []
+    spy_rungs(torch, K, asr, rungs)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    asr.transcribe(wav, 16_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_c = launch_counts(K)
+    tm = asr.timings
+    out = {"windows": tm["windows"], "window_temps": asr.window_temps,
+           "transcribe_s": wall, "detect_s": tm["detect_s"],
+           "encode_ms": tm["encode_s"] * 1e3,
+           "decode_ms": tm["decode_s"] * 1e3,
+           "fallback_ms": tm["fallback_s"] * 1e3, "rungs": rungs,
+           "launches": launches_c}
+    print(tag, json.dumps(out), flush=True)
+    temps = [r["temperature"] for r in rungs]
+    if temps != [0.0] + list(cfg.fallback_temperatures) or \
+            tm["windows"] != 4:
+        fail(f"{tag}: expected 4 windows and the rungs "
+             f"{[0.0] + list(cfg.fallback_temperatures)}, got {temps}")
+    for r in rungs:  # each rung runs the profile's decode kernels
+        if not {Q8W, CROSS8} <= set(r["launches"]):
+            fail(f"{tag}: rung {r['temperature']} launched {r['launches']}")
+    # encoder flash calls: the language detection's and the batch's
+    check_launches(tag, launches_c, PROFILES[FALLBACK_PROFILE][1],
+                   2 * asr.dims.n_audio_layer)
+
+    # (d) conditioned on previous text, 3 windows
+    tag_d = f"fallback[{FALLBACK_PROFILE},conditioned]"
+    asr.config.condition_on_previous_text = True
+    rungs.clear()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    asr.transcribe(wav[: 3 * 30 * 16_000], 16_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_d = launch_counts(K)
+    decode_ms: list[float] = []  # each window's rungs, from its 0.0 rung
+    for r in rungs:
+        if r["temperature"] == 0.0:
+            decode_ms.append(0.0)
+        decode_ms[-1] += r["ms"]
+    out = {"windows": asr.timings["windows"],
+           "window_temps": asr.window_temps, "transcribe_s": wall,
+           "ms_per_window": wall * 1e3 / max(asr.timings["windows"], 1),
+           "decode_ms_per_window": decode_ms,
+           "prompt_lens": [r["prompt_len"] for r in rungs
+                           if r["temperature"] == 0.0],
+           "rungs": rungs, "launches": launches_d}
+    print(tag_d, json.dumps(out), flush=True)
+    if asr.timings["windows"] != 3 or max(out["prompt_lens"]) <= 16:
+        fail(f"{tag_d}: expected 3 windows and a prompt longer than 16 "
+             f"tokens, got {out['prompt_lens']}")
+    check_launches(tag_d, launches_d, PROFILES[FALLBACK_PROFILE][1],
+                   4 * asr.dims.n_audio_layer)
+    del asr
+    return {"fallback[test]": launches_b, tag: launches_c,
+            tag_d: launches_d}
+
+
+def large_v3_config(device: str, profile: str, window_batch: int,
+                    **asr_fields):
+    """The large-v3 paths' config: greedy at temperature 0 in English, as
+    ``bench.py`` measures it, unless ``asr_fields`` say otherwise."""
     from audio_rag_tpu_torch.config import (
         ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig)
 
+    fields = {"language": "en", "temperature_fallback": False, **asr_fields}
     return AudioRAGConfig(
         asr=ASRConfig(model_size="large-v3", compute_type="bfloat16",
                       window_batch_size=window_batch, max_decode_tokens=32,
-                      language="en", seed=0, vad_filter=False,
+                      seed=0, vad_filter=False, **fields,
                       **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
         chunking=ChunkingConfig(min_chunk_tokens=1, overlap_tokens=0),
@@ -1690,10 +1948,10 @@ def phase_beam(torch, K) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,spine,diarize,full,full_kv4,"
-                            "capacity,beam",
+                    default="build,kernels,spine,diarize,fallback,full,"
+                            "full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
-                         "diarize,full,full_kv4,capacity,beam")
+                         "diarize,fallback,full,full_kv4,capacity,beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1719,6 +1977,13 @@ def main() -> None:
     t0 = time.perf_counter()
     report = K.build(verbose="build" in phases)
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
+    from audio_rag_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.native_available():  # word-time DTW, WAV decode, resample
+        fail("the native audio runtime did not build or load")
+    print(f"native library {native.lib_path()} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name, rep in report.items():
         if rep["log"]:
             print(f"--- nvcc {name} ({rep['seconds']:.1f} s)\n{rep['log']}")
@@ -1737,6 +2002,9 @@ def main() -> None:
         if "diarize" in phases:
             by_path.update(phase_diarize(torch, K, Path(tmp)))
             free_card(torch)
+    if "fallback" in phases:
+        by_path.update(phase_fallback(torch, K))
+        free_card(torch)
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)
         free_card(torch)  # two large-v3 copies need not coexist

@@ -206,3 +206,63 @@ print(json.dumps([before, mid, switches()]))
     assert out.returncode == 0, out.stderr[-2000:]
     before, mid, after = json.loads(out.stdout.strip().splitlines()[-1])
     assert before == mid == after
+
+
+# -- the fallback ladder's PRNG ------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 1024), (16, 51866), (80, 51866)])
+def test_prng_bits_and_draws_on_card_equal_the_cpus(cuda, shape):
+    """``ops/random.py`` on the card: the bits and uniforms of the CPU's
+    numpy path bit for bit, the Gumbel noise within 2 ulp of max(|g|, 1)
+    (both f64 logs rounded to f32), and the same ``categorical`` draws
+    over a chain of keys."""
+    from audio_rag_tpu_torch.ops import random as R
+
+    key = R.PRNGKey(40)
+    tiny = torch.finfo(torch.float32).tiny
+    for _ in range(3):
+        key, sub = R.split(key)
+        assert torch.equal(R.random_bits(sub, shape, cuda).cpu(),
+                           R.random_bits(sub, shape, "cpu"))
+        assert torch.equal(R.uniform(sub, shape, tiny, 1.0, cuda).cpu(),
+                           R.uniform(sub, shape, tiny, 1.0, "cpu"))
+        g_card = R.gumbel(sub, shape, cuda).cpu()
+        g_cpu = R.gumbel(sub, shape, "cpu")
+        spacing = torch.nextafter(g_cpu.abs().clamp(min=1.0),
+                                  torch.tensor(float("inf"))) - \
+            g_cpu.abs().clamp(min=1.0)
+        assert bool(((g_card - g_cpu).abs() <= 2 * spacing).all())
+        logp = torch.log_softmax(_randn(shape, 7).float() * 3.0, dim=-1)
+        inv_t = torch.tensor(1.0) / torch.tensor(0.2)
+        assert torch.equal(
+            R.categorical(sub, (logp * inv_t).to(cuda)).cpu(),
+            R.categorical(sub, logp * inv_t))
+
+
+def test_sampled_greedy_decode_on_card_equals_the_cpus(cuda):
+    """Sampled greedy decoding at the ``test`` preset (f32, weights made
+    on the host): the card's tokens are the CPU's at 0.2 and 0.4."""
+    from audio_rag_tpu_torch.ops import random as R
+
+    dims = tw.WHISPER_PRESETS["test"]
+    st = tw.SpecialTokens.for_dims(dims)
+    params = tw.init_whisper(dims, seed=0)
+    mel = _randn((4, dims.n_mels, 2 * dims.n_audio_ctx), 11).float()
+    prompt = torch.tensor([[st.sot, st.lang_base, st.transcribe,
+                            st.no_timestamps]] * 4)
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        return tree.to(cuda)
+
+    card = to(params)
+    for t in (0.2, 0.4):
+        out = []
+        for p, dev in ((params, "cpu"), (card, cuda)):
+            enc = tw.encode(p, dims, mel.to(dev), torch.float32)
+            toks = tw.greedy_decode(p, dims, enc, prompt.to(dev), 8, st.eot,
+                                    dtype=torch.float32, temperature=t,
+                                    rng=R.PRNGKey(int(t * 100)))[0]
+            out.append(toks.cpu())
+        assert torch.equal(out[0], out[1])

@@ -111,6 +111,9 @@ PROFILES = {
                    "decode": "beam", "beam_size": 5},
     "spec8+int8": {"cross_kv_int8": True, "decoder_int8": True,
                    "speculative_k": 8},
+    # the temperature-fallback ladder on in both packages (the profiles
+    # above run it off on both sides)
+    "fp32+ladder": {"temperature_fallback": True},
 }
 
 
@@ -141,7 +144,7 @@ def _port_rag(switches, diarization=None, max_tokens=8):
     return AudioRAG(AudioRAGConfig(
         asr=ASRConfig(**{"model_size": "tiny-synth",
                          "compute_type": "float32", "vad_filter": False,
-                         **switches}),
+                         "temperature_fallback": False, **switches}),
         diarization=diarization or DiarizationConfig(),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
@@ -318,11 +321,19 @@ def _imported_roots(path):
 
 
 def test_sources_of_port_and_chip_smoke_import_no_jax():
+    """No import of JAX or the JAX package, and no use of the JAX
+    package's native library or its Makefile: the port builds its own
+    copy of the C++ source."""
     files = [ROOT / "chip_smoke.py",
              *sorted((ROOT / "audio_rag_tpu_torch").rglob("*.py"))]
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "audio_rag_tpu"}
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    for path in [*files, *sorted(
+            (ROOT / "audio_rag_tpu_torch" / "csrc").glob("*.cpp"))]:
+        text = path.read_text()
+        for name in ("libaudiorag_audio", "Makefile"):
+            assert name not in text, f"{path.relative_to(ROOT)} names {name}"
 
 
 # -- chip_smoke.py without a card -------------------------------------------------

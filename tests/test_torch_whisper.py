@@ -353,7 +353,8 @@ def backends():
         temperature_fallback=False))
     jasr.load()
     tasr = WhisperASR(ASRConfig(model_size="tiny-synth",
-                                compute_type="float32", vad_filter=False),
+                                compute_type="float32", vad_filter=False,
+                                temperature_fallback=False),
                       "cpu")
     tasr.load()
     wav = synth_text(HELD_OUT[0], np.random.default_rng(11),
