@@ -1,21 +1,24 @@
 """The port's own configuration: plain dataclasses holding the ASR,
-diarization, alignment, embedding, retrieval and chunking fields the
-ported slice uses, plus the device.
+diarization, alignment, embedding, retrieval, reranking and chunking
+fields the ported slice uses, plus the device.
 
 Every field a dataclass shares with ``audio_rag_tpu/config/schema.py`` has
 the schema's name, default and bounds: ``AudioRAG()`` runs Whisper
 large-v3 (seeded weights: no checkpoint is in the repository) with the
-temperature-fallback ladder on and the language detected, and the BGE-M3
-embedder at XLM-R large shapes (seeded, as the JAX embedder starts without
-files). A caller who wants the committed trained models names them
-(``model_size="tiny-synth"``, ``model="eval-small"``); one who wants greedy
+temperature-fallback ladder on and the language detected, the BGE-M3
+embedder at XLM-R large shapes and the bge-reranker-base cross-encoder at
+XLM-R base shapes (both seeded, as the JAX models start without files),
+and ``query`` reranks. A caller who wants the committed trained models
+names them (``model_size="tiny-synth"``, ``model="eval-small"`` for the
+embedder and the reranker); one who wants greedy
 decoding at temperature 0 only passes ``temperature_fallback=False``, and
 ``language="en"`` skips the detection. The departures: that schema cannot
 name a torch backend or a CUDA device, so the port does not reuse it; the
-port has no ``backend``, per-section ``device``, ``checkpoint_path`` (no
-converted checkpoint is read) or ``mel_sharded`` (one device: each
-window's mel is clamped alone) field; it adds the weight ``seed`` of the
-presets without an asset and ``AudioRAGConfig.device``.
+port has no per-section ``device``, no ``backend`` but the diarizer's and
+the reranker's, no ``checkpoint_path`` but theirs (no converted
+checkpoint is read: setting one raises) and no ``mel_sharded`` (one
+device: each window's mel is clamped alone) field; it adds the weight
+``seed`` of the presets without an asset and ``AudioRAGConfig.device``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ __all__ = [
     "ChunkingConfig",
     "EmbeddingConfig",
     "RetrievalConfig",
+    "RerankingConfig",
     "AudioRAGConfig",
 ]
 
@@ -194,11 +198,56 @@ class RetrievalConfig:
     search_type: str = "hybrid"
     top_k: int = 5
     score_threshold: float = 0.0
+    #: kept for the schema; hybrid search fuses by rank (RRF), not weights
+    dense_weight: float = 0.7
+    sparse_weight: float = 0.3
     rrf_k: float = 2.0
     max_doc_nnz: int = 128
     max_query_nnz: int = 64
+    #: collections persist here as ``<name>.npz`` + ``<name>.json`` (the
+    #: JAX store's files: either package loads the other's)
+    persist_dir: str | None = None
     #: corpus rows grow in steps of this many rows
     capacity_step: int = 4096
+    #: int8 dense corpus with per-row symmetric scales (the query is
+    #: quantized too and the product taken on integers)
+    quantize_dense: bool = False
+
+    def __post_init__(self):
+        if self.search_type not in ("dense", "sparse", "hybrid"):
+            raise ConfigError(f"search_type must be 'dense', 'sparse' or "
+                              f"'hybrid', got {self.search_type!r}")
+
+
+@dataclass
+class RerankingConfig:
+    #: "bge-reranker" (the cross-encoder), "fake" (word overlap) or "none"
+    backend: str = "bge-reranker"
+    #: "eval-small" loads the committed trained asset, "test" keeps a
+    #: seeded tiny encoder; other names, the default among them, start
+    #: from seeded weights at XLM-R base shapes
+    model: str = "BAAI/bge-reranker-base"
+    top_k: int = 5
+    #: candidates retrieved for the reranker to order
+    initial_k: int = 20
+    batch_size: int = 16
+    max_length: int = 512
+    #: passage tokens (with the trailing ``</s>``) kept per chunk in the
+    #: query engine's reranker-token cache
+    fused_doc_tokens: int = 224
+    #: a converted reranker checkpoint (not ported: raises when set)
+    checkpoint_path: str | None = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.backend not in ("bge-reranker", "fake", "none"):
+            raise ConfigError(f"reranking backend must be 'bge-reranker', "
+                              f"'fake' or 'none', got {self.backend!r}")
+        for name, lo in (("top_k", 1), ("initial_k", 1), ("batch_size", 1),
+                         ("max_length", 16), ("fused_doc_tokens", 16)):
+            if getattr(self, name) < lo:
+                raise ConfigError(f"{name} must be ≥ {lo}, got "
+                                  f"{getattr(self, name)}")
 
 
 @dataclass
@@ -209,5 +258,6 @@ class AudioRAGConfig:
     chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+    reranking: RerankingConfig = field(default_factory=RerankingConfig)
     #: "cuda" (default) or "cpu"; CUDA without a card raises
     device: str = "cuda"

@@ -130,3 +130,8 @@ class RetrievalResult:
     speaker: str | None = None
     chunk_id: str | None = None
     metadata: dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"text": self.text, "score": self.score, "start": self.start,
+                "end": self.end, "speaker": self.speaker,
+                "chunk_id": self.chunk_id, "metadata": dict(self.metadata)}

@@ -3,6 +3,11 @@ reciprocal rank fusion, top-k (counterpart of ``audio_rag_tpu/ops/similarity.py`
 
 Top-k is a stable descending sort, so equal scores rank by ascending row
 index like ``jax.lax.top_k``; the two packages then order ties alike.
+
+An int8 dense corpus (per-row scales) scores against a query quantized the
+same way, the product taken on the integer values: they are held in f32,
+where a sum of at most 1,024 products of |q|, |d| ≤ 127 stays below 2^24
+and is exact, so the scores are the JAX package's int32 product's.
 """
 
 from __future__ import annotations
@@ -10,9 +15,11 @@ from __future__ import annotations
 import torch
 
 from audio_rag_tpu_torch.device import full_f32_matmul
+from audio_rag_tpu_torch.models.layers import _INV127
 
 __all__ = [
     "NEG_INF",
+    "quantize_query",
     "dense_scores",
     "sparse_scores",
     "topk_with_mask",
@@ -29,8 +36,26 @@ def rrf_prefetch(k: int) -> int:
     return 1 << (max(2 * k, 1) - 1).bit_length()
 
 
-def dense_scores(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
-    """(B, dim) · (N, dim)ᵀ → (B, N) f32 inner products."""
+def quantize_query(queries: torch.Tensor) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Symmetric per-row int8 of (B, dim) f32 queries: (values in
+    [-127, 127] held in f32, scales (B, 1)). The scale is max|q| times the
+    f32 reciprocal of 127, as XLA compiles the JAX package's jitted
+    ``max(q_max, 1e-9) / 127.0``; rounding is half to even."""
+    q_max = torch.amax(torch.abs(queries), dim=-1, keepdim=True)
+    q_scale = torch.clamp(q_max, min=1e-9) * _INV127
+    return torch.clamp(torch.round(queries / q_scale), -127, 127), q_scale
+
+
+def dense_scores(queries: torch.Tensor, corpus: torch.Tensor,
+                 corpus_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, dim) · (N, dim)ᵀ → (B, N) f32 inner products; an int8 corpus
+    takes its per-row ``corpus_scales`` (N,) and a quantized query."""
+    if corpus.dtype == torch.int8:
+        q_q, q_scale = quantize_query(queries.float())
+        with full_f32_matmul():
+            acc = torch.matmul(q_q, corpus.float().t())
+        return acc * q_scale * corpus_scales[None, :]
     with full_f32_matmul():
         return torch.matmul(queries.float(), corpus.float().t())
 
@@ -107,17 +132,27 @@ def rrf_fuse(score_lists: list[torch.Tensor], valid_mask: torch.Tensor,
 def hybrid_search(q_dense: torch.Tensor, q_tokens: torch.Tensor,
                   q_weights: torch.Tensor, corpus_dense: torch.Tensor,
                   doc_tokens: torch.Tensor, doc_weights: torch.Tensor,
-                  valid_mask: torch.Tensor, top_k: int = 5,
+                  valid_mask: torch.Tensor,
+                  corpus_scales: torch.Tensor | None = None, top_k: int = 5,
                   search_type: str = "hybrid", rrf_k: float = 2.0,
-                  prefetch: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """score → (fuse) → top-k. Returns (scores (B, k), indices (B, k));
-    invalid slots score NEG_INF."""
+                  prefetch: int = 0,
+                  filter_cols: tuple[torch.Tensor, ...] = (),
+                  filter_codes: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(filter) → score → (fuse) → top-k. Returns (scores (B, k), indices
+    (B, k)); invalid slots score NEG_INF. ``filter_cols`` are (N,) int32
+    columns of interned payload codes and ``filter_codes`` (F,) the wanted
+    codes: a row is kept where every column equals its code."""
+    if filter_cols:
+        stacked = torch.stack(filter_cols)  # (F, N)
+        valid_mask = valid_mask & torch.all(
+            stacked == filter_codes[:, None], dim=0)
     if search_type == "dense":
-        scores = dense_scores(q_dense, corpus_dense)
+        scores = dense_scores(q_dense, corpus_dense, corpus_scales)
     elif search_type == "sparse":
         scores = sparse_scores(q_tokens, q_weights, doc_tokens, doc_weights)
     elif search_type == "hybrid":
-        d = dense_scores(q_dense, corpus_dense)
+        d = dense_scores(q_dense, corpus_dense, corpus_scales)
         s = sparse_scores(q_tokens, q_weights, doc_tokens, doc_weights)
         scores = rrf_fuse([d, s], valid_mask, rrf_k=rrf_k,
                           prefetch=prefetch if prefetch > 0 else 2 * top_k,

@@ -1,5 +1,6 @@
 """Deterministic word-hash tokenizer and batch padding (copy of
-``audio_rag_tpu/text/tokenizer.py::HashWordTokenizer``/``pad_batch``).
+``audio_rag_tpu/text/tokenizer.py::HashWordTokenizer``/``pad_batch``), the
+cross-encoder's pair layout included.
 
 Equal words map to equal ids, stable across processes and across the two
 packages, so the port's sparse/lexical retrieval matches the JAX package's
@@ -58,6 +59,15 @@ class HashWordTokenizer:
             if int(i) >= self.n_special
         ]
         return " ".join(words)
+
+    def encode_pair(self, a: str, b: str, max_len: int) -> list[int]:
+        """RoBERTa pair layout: <s> a </s></s> b </s>, truncating ``b``."""
+        ia = [self._word_id(w) for w in self.tokenize_words(a)]
+        ib = [self._word_id(w) for w in self.tokenize_words(b)]
+        budget = max_len - len(ia) - 4
+        ib = ib[: max(budget, 0)]
+        out = [self.cls_id, *ia, self.sep_id, self.sep_id, *ib, self.sep_id]
+        return out[:max_len]
 
 
 def pad_batch(

@@ -27,6 +27,7 @@ from audio_rag_tpu_torch.models.whisper import WhisperDims
 __all__ = [
     "whisper_spec",
     "bgem3_spec",
+    "cross_encoder_spec",
     "speaker_spec",
     "vad_spec",
     "whisper_params",
@@ -34,6 +35,7 @@ __all__ = [
     "whisper_cross_kv",
     "whisper_self_cache_q8",
     "bgem3_params",
+    "cross_encoder_params",
     "speaker_params",
     "vad_params",
 ]
@@ -119,8 +121,7 @@ def whisper_spec(dims: WhisperDims) -> dict[str, Shape]:
     return spec
 
 
-def bgem3_spec(dims: BertDims) -> dict[str, Shape]:
-    """Slash-joined key → shape of every leaf of a BGE-M3 tree."""
+def _bert_spec(dims: BertDims) -> dict[str, Shape]:
     L, d = dims.n_layers, dims.d_model
     spec: dict[str, Shape] = {
         "bert/tok_emb/table": (dims.vocab, d),
@@ -133,7 +134,22 @@ def bgem3_spec(dims: BertDims) -> dict[str, Shape]:
     spec.update(_ln("bert/blocks/ln_mlp", L, d))
     spec.update(_lin("bert/blocks/mlp/up", L, d, dims.d_ff))
     spec.update(_lin("bert/blocks/mlp/down", L, dims.d_ff, d))
-    spec.update(_lin("sparse", None, d, 1))
+    return spec
+
+
+def bgem3_spec(dims: BertDims) -> dict[str, Shape]:
+    """Slash-joined key → shape of every leaf of a BGE-M3 tree."""
+    spec = _bert_spec(dims)
+    spec.update(_lin("sparse", None, dims.d_model, 1))
+    return spec
+
+
+def cross_encoder_spec(dims: BertDims, n_out: int = 1) -> dict[str, Shape]:
+    """Slash-joined key → shape of every leaf of a cross-encoder tree
+    (``n_out`` 1: the reranker; 3: the NLI head)."""
+    spec = _bert_spec(dims)
+    spec.update(_lin("dense", None, dims.d_model, dims.d_model))
+    spec.update(_lin("out", None, dims.d_model, n_out))
     return spec
 
 
@@ -215,6 +231,20 @@ def bgem3_params(tree: dict, dims: BertDims,
                  dtype: torch.dtype = torch.float32) -> dict:
     """A BGE-M3 tree (``init_bgem3`` layout) → tensors of ``dtype``."""
     return _float_tree(tree, bgem3_spec(dims), "bgem3", device, dtype)
+
+
+def cross_encoder_params(tree: dict, dims: BertDims,
+                         device: str | torch.device = "cpu",
+                         dtype: torch.dtype = torch.float32) -> dict:
+    """A cross-encoder tree (``init_cross_encoder`` layout: "bert",
+    "dense", "out") → tensors of ``dtype``; the head's width (1 or 3)
+    follows ``out/w``."""
+    shape = np.shape(_flatten(tree).get("out/w", ()))
+    if len(shape) != 2:
+        raise KeyError(f"cross-encoder tree: out/w has shape {shape}, "
+                       "expected (d_model, n_out)")
+    return _float_tree(tree, cross_encoder_spec(dims, shape[1]),
+                       "cross-encoder", device, dtype)
 
 
 def speaker_params(tree: dict, dims: SpeakerDims,

@@ -86,12 +86,28 @@ subset):
               each rung's ms, loop iterations and kernel launches;
               (d) ``condition_on_previous_text`` on 3 large-v3 windows,
               which must prime a prompt longer than 16 tokens: ms per
-              window.
+              window;
+10. query   — the query half (no kernel runs on it): (a) the trained
+              eval-small embedder and reranker on the spine's three turns
+              and 21 distractors through ``AudioRAG.query``, every search
+              type with rerank on and off and a filtered query, on the
+              card and on the port's CPU: the same top 5 but for
+              near-ties, scores within 8e-3 or two bf16 ulps; (b) BGE-M3
+              (XLM-R large) and bge-reranker-base (XLM-R base), seeded,
+              on ``bench.py``'s 10,000-chunk corpus: hybrid, rerank 20 →
+              5 at query batch 128 (ms, QPS, the same batches without the
+              reranker, a traced batch's host and device ms) and single
+              stream (median of 10), peak memory, then an int8 corpus and
+              a filtered query; the fused path's reranker scores of the
+              first 8 queries against ``score_pairs_multi`` in f32
+              (within 1e-4 relative) and in bf16 (within 8 ulps); (c) it
+              fails if any kernel launched.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
 the script fails without it, so the word-time DTW of every ingest runs in
-C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``.
+C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
+``query`` after ``fallback``.
 The spine, the diarized ingest and the large-v3 paths other than
 ``fallback`` run with the fallback ladder off and, at large-v3, in
 English, as ``bench.py`` measures. The spine ingests with
@@ -905,7 +921,7 @@ def speak(turns, rng, window_s: float):
 def spine_config(device: str, profile: str):
     from audio_rag_tpu_torch.config import (
         ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig,
-        RetrievalConfig)
+        RerankingConfig, RetrievalConfig)
 
     return AudioRAGConfig(
         asr=ASRConfig(model_size="tiny-synth", compute_type="float32",
@@ -913,6 +929,8 @@ def spine_config(device: str, profile: str):
                       **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
+        # reranking is the query phase's; these paths hold the ASR
+        reranking=RerankingConfig(backend="none"),
         # small max_tokens: each 6 s window's segment becomes its own chunk
         chunking=ChunkingConfig(max_tokens=8, min_chunk_tokens=1,
                                 overlap_tokens=0),
@@ -1076,7 +1094,7 @@ def run_diarized(device: str, wav_path: Path) -> dict:
     then both queries; returns the chunks, the words and the hits."""
     from audio_rag_tpu_torch.config import (
         ASRConfig, AudioRAGConfig, ChunkingConfig, DiarizationConfig,
-        EmbeddingConfig, RetrievalConfig)
+        EmbeddingConfig, RerankingConfig, RetrievalConfig)
     from audio_rag_tpu_torch.pipeline import AudioRAG
 
     rag = AudioRAG(AudioRAGConfig(
@@ -1086,6 +1104,7 @@ def run_diarized(device: str, wav_path: Path) -> dict:
         diarization=DiarizationConfig(max_speakers=2),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
+        reranking=RerankingConfig(backend="none"),
         chunking=ChunkingConfig(min_chunk_tokens=1, overlap_tokens=0),
         device=device))
     asr = rag.asr
@@ -1471,12 +1490,333 @@ def phase_fallback(torch, K) -> dict:
             tag_d: launches_d}
 
 
+# -- phase 10: the query half ------------------------------------------------------
+
+QUERY_BATCH, QUERY_BATCHES, QUERY_SINGLE = 128, 6, 10
+QUERY_CORPUS = 10_000  # bench.py's corpus
+
+
+def bf16_ulp(score: float) -> float:
+    a = abs(float(score))
+    return 2.0 ** (math.floor(math.log2(a)) - 7) if a else 0.0
+
+
+def score_tol(score: float) -> float:
+    """The tests' tolerance of a score: the ranking goldens' 8e-3, or two
+    bf16 ulps of the score where that is more."""
+    return max(8e-3, 2 * bf16_ulp(score))
+
+
+def same_ranking(got: list, ref: list) -> bool:
+    """(id, score) lists: the same ids, in the same order but for
+    near-ties, and every score within :func:`score_tol`."""
+    want = dict(ref)
+    if len(got) != len(ref) or {i for i, _ in got} != set(want):
+        return False
+    if any(abs(s - want[i]) > score_tol(want[i]) for i, s in got):
+        return False
+    ranked = [want[i] for i, _ in got]
+    return all(a >= b - score_tol(a) for a, b in zip(ranked, ranked[1:]))
+
+
+def spine_corpus():
+    """The spine's three turns and 21 distractor chunks (seed 11), with a
+    "kind" to filter on."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.core.types import AudioChunk
+
+    rng = np.random.default_rng(11)
+    words = ("model data signal window audio chunk query vector fusion "
+             "rank weight step update noise speech meeting lecture "
+             "gradient spectrogram attention").split()
+    texts = list(SPINE_TURNS) + [" ".join(rng.choice(words, 8).tolist())
+                                 for _ in range(21)]
+    return [AudioChunk(t, 6.0 * i, 6.0 * i + 5.0,
+                       speaker=f"SPEAKER_{i % 2:02d}", chunk_id=f"s{i}",
+                       metadata={"kind": "turn" if i < 3 else "other"})
+            for i, t in enumerate(texts)]
+
+
+def run_query_spine(device: str) -> dict:
+    """(a) The eval-small embedder and reranker on the spine corpus
+    through ``AudioRAG.query``: every search type with rerank on and off,
+    and a filtered query. Returns (id, score) lists by case."""
+    from audio_rag_tpu_torch.config import (
+        AudioRAGConfig, EmbeddingConfig, RerankingConfig, RetrievalConfig)
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+
+    rag = AudioRAG(AudioRAGConfig(
+        embedding=EmbeddingConfig(model="eval-small"),
+        retrieval=RetrievalConfig(capacity_step=128),
+        reranking=RerankingConfig(model="eval-small"), device=device))
+    chunks = spine_corpus()
+    rag.store.add(chunks, rag.embedder.embed([c.text for c in chunks]),
+                  "query")
+    out = {}
+    for text, _ in SPINE_QUERIES:
+        for st in ("dense", "sparse", "hybrid"):
+            for rerank in (True, False):
+                res = rag.query(text, search_type=st, rerank=rerank,
+                                collection="query")
+                out[f"{text}|{st}|rerank={rerank}"] = [
+                    (r.chunk_id, r.score) for r in res.results]
+        res = rag.query(text, collection="query",
+                        metadata_filter={"kind": "turn"})
+        out[f"{text}|filtered"] = [(r.chunk_id, r.score)
+                                   for r in res.results]
+    return out
+
+
+def bench_corpus(rag, rng):
+    """``bench.py``'s corpus recipe (its own copy): 64 chunks of 40 words
+    embedded by the model, then random dense rows and 60 random sparse
+    terms up to 10,000 chunks; "part" (i mod 4) to filter on."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.core.types import (
+        AudioChunk, EmbeddingResult, SparseVector)
+
+    words = [f"term{i}" for i in range(2000)]
+    texts = [" ".join(rng.choice(words, size=40).tolist()) for _ in range(64)]
+    real = rag.embedder.embed(texts)
+    dim = real[0].dim
+    chunks, embs = [], []
+    for i in range(QUERY_CORPUS):
+        if i < len(real):
+            emb, text = real[i], texts[i]
+        else:
+            dense = rng.standard_normal(dim).astype(np.float32)
+            ids = np.unique(rng.integers(4, 30_000, size=60)).astype(np.int32)
+            emb = EmbeddingResult(dense=dense, sparse=SparseVector(
+                ids, rng.random(ids.size).astype(np.float32)))
+            text = " ".join(rng.choice(words, size=40).tolist())
+        chunks.append(AudioChunk(text=text, start=float(i),
+                                 end=float(i + 30),
+                                 speaker=f"SPEAKER_{i % 4:02d}",
+                                 chunk_id=f"c{i}", metadata={"part": i % 4}))
+        embs.append(emb)
+    return chunks, embs
+
+
+def make_queries(n: int, seed: int) -> list[str]:
+    """``bench.py``'s queries."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    return [f"what is term{r.integers(2000)} and how does "
+            f"term{r.integers(2000)} relate to term{r.integers(2000)}"
+            for _ in range(n)]
+
+
+def time_query(torch, rag, stores: dict) -> dict:
+    """Through ``AudioRAG``, on each store in turns (the order alternating
+    by round) after one warm batch and query each: ``QUERY_BATCHES``
+    batches of 128, 3 batches without the reranker, ``QUERY_SINGLE``
+    single queries, and on the first store the same single queries with a
+    metadata filter (part 2). Returns the timings by store."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.engine.query_engine import QueryEngine
+
+    engines = {name: QueryEngine(rag.embedder, st)
+               for name, st in stores.items()}
+
+    def use(name):
+        rag.store, rag._engine = stores[name], engines[name]
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def rounds(n):
+        names = list(stores)
+        return [(i, names if i % 2 == 0 else names[::-1]) for i in range(n)]
+
+    for name in stores:
+        use(name)
+        rag.query_batch(make_queries(QUERY_BATCH, 99))
+        rag.query(make_queries(1, 98)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {name: {"batch_ms": [], "no_rerank_batch_ms": [], "single_ms": []}
+           for name in stores}
+    first = next(iter(stores))
+    out[first]["filtered_single_ms"] = []
+    for b, names in rounds(QUERY_BATCHES):
+        qs = make_queries(QUERY_BATCH, b)
+        for name in names:
+            use(name)
+            rows = []
+            out[name]["batch_ms"].append(timed(
+                lambda: rows.extend(rag.query_batch(qs))))
+            if len(rows) != QUERY_BATCH or any(len(r.results) != 5
+                                               for r in rows):
+                fail(f"query: a batch returned "
+                     f"{[len(r.results) for r in rows]}")
+            if not all(math.isfinite(x.score) for r in rows
+                       for x in r.results):
+                fail("query: non-finite scores")
+    for b, names in rounds(3):  # embed + search alone
+        qs = make_queries(QUERY_BATCH, b)
+        for name in names:
+            use(name)
+            out[name]["no_rerank_batch_ms"].append(timed(
+                lambda: rag.query_batch(qs, rerank=False)))
+    filtered: list = []
+    for i, names in rounds(QUERY_SINGLE):
+        q = make_queries(QUERY_SINGLE, 77)[i]
+        for name in names:
+            use(name)
+            out[name]["single_ms"].append(timed(lambda: rag.query(q)))
+        use(first)
+        out[first]["filtered_single_ms"].append(timed(
+            lambda: filtered.append(rag.query(
+                q, metadata_filter={"part": 2}))))
+    hits = [h for res in filtered for h in res.results]
+    if len(hits) != 5 * QUERY_SINGLE or any(int(h.chunk_id[1:]) % 4 != 2
+                                             for h in hits):
+        fail("query[full,filtered]: hits outside the filter")
+    use(first)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for d in out.values():
+        ms = float(np.median(d["batch_ms"]))
+        d.update({f"{k}_median": float(np.median(v))
+                  for k, v in list(d.items())},
+                 batch=QUERY_BATCH, qps=QUERY_BATCH / ms * 1e3,
+                 peak_mem_gb_all_stores=peak)
+    return out
+
+
+def phase_query(torch, K) -> dict:
+    """(a) the trained spine's query half on the card against the port's
+    CPU; (b) BGE-M3 (XLM-R large) + bge-reranker-base (XLM-R base),
+    seeded, on bench.py's 10,000-chunk corpus: hybrid, rerank 20 → 5, at
+    query batch 128 and single stream, then an int8 corpus and a filtered
+    query, the fused scores against ``score_pairs_multi``; (c) no kernel
+    launches. Returns the launches."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.config import (
+        AudioRAGConfig, RetrievalConfig)
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+    from audio_rag_tpu_torch.retrieval.store import VectorStore
+
+    K.reset_launches()
+    # (a)
+    t0 = time.perf_counter()
+    card = run_query_spine("cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = run_query_spine("cpu")
+    bad = [case for case in card if not same_ranking(card[case], cpu[case])]
+    for case in card:
+        print(f"query[spine] {case} card {json.dumps(card[case])}"
+              + ("" if case not in bad else
+                 f" cpu {json.dumps(cpu[case])} DIFFERS"))
+    print(f"query[spine] {len(card)} queries on the card in {card_s:.2f} s, "
+          f"{len(card) - len(bad)} agree with the CPU", flush=True)
+    if bad:
+        fail(f"query[spine]: the card's rankings differ from the CPU's in "
+             f"{bad}")
+    # the search finds the spoken turn (the tiny reranker, trained on
+    # another corpus, ranks these random-word distractors above it, on the
+    # CPU as on the card)
+    top = card[f"{SPINE_QUERIES[0][0]}|hybrid|rerank=False"]
+    if not top or top[0][0] != "s0":
+        fail(f"query[spine]: the top hit is not the spoken turn: {top}")
+
+    # (b) full width, seeded weights
+    rag = AudioRAG(AudioRAGConfig(
+        retrieval=RetrievalConfig(capacity_step=4096), device="cuda"))
+    t0 = time.perf_counter()
+    rag.embedder, rag.reranker  # load both models
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunks, embs = bench_corpus(rag, np.random.default_rng(0))
+    rag.store.add(chunks, embs)
+    corpus_s = time.perf_counter() - t0
+    print(f"query[full] models {rag.embedder.dims} / {rag.reranker.dims}, "
+          f"loaded in {load_s:.1f} s; corpus of {rag.count()} chunks in "
+          f"{corpus_s:.1f} s", flush=True)
+    # an int8 copy of the corpus (quantize_dense), timed in turns with it
+    qstore = VectorStore(RetrievalConfig(capacity_step=4096,
+                                         quantize_dense=True), "cuda")
+    qstore.add(chunks, embs)
+    timings = time_query(torch, rag, {"f32": rag.store, "int8": qstore})
+    out = timings["f32"]
+    qs = make_queries(QUERY_BATCH, 0)
+    traced = trace_steps(torch, lambda: rag.query_batch(qs), steps=1,
+                         top=12)
+    out["traced_batch"] = {
+        "host_ms": traced["decode_ms_per_step"],
+        "traced_host_ms": traced["traced_host_ms_per_step"],
+        "device_busy_ms": traced["device_busy_ms_per_step"],
+        "device_busy_share": traced["device_busy_share_traced"],
+        "kernel_launches": traced["kernel_launches_per_step"],
+        "top_kernels_ms": traced["top_kernels_ms_per_step"]}
+    print("query[full] hybrid rerank 20→5", json.dumps(out), flush=True)
+
+    # the fused path's scores against score_pairs_multi on the same
+    # pairs: in f32 (the reranker's bf16 weights widened), where only the
+    # order of f32 sums differs, then in bf16 as served, where the two
+    # paths' other GEMM shapes round a logit by a few ulps
+    for dtype in (torch.float32, torch.bfloat16):
+        rag.reranker.dtype = dtype
+        rows = rag.query_batch(qs[:8])
+        pairs = [(q, r) for q, row in zip(qs[:8], rows)
+                 for r in row.results]
+        ref = rag.reranker.score_pairs_multi([q for q, _ in pairs],
+                                             [r.text for _, r in pairs])
+        errs = [abs(r.score - float(s)) for (_, r), s in zip(pairs, ref)]
+        ulps = [e / max(bf16_ulp(s), 2.0 ** -133)
+                for e, s in zip(errs, ref)]
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        print(f"query[full] fused scores vs score_pairs_multi ({tag}): "
+              f"{len(pairs)} pairs, max |err| {max(errs):.7f}, max "
+              f"{max(ulps):.2f} bf16 ulps, mean |err| "
+              f"{sum(errs) / len(errs):.7f}, scores "
+              f"{min(map(float, ref)):.4f}..{max(map(float, ref)):.4f}",
+              flush=True)
+        if dtype == torch.float32 and any(
+                e > 1e-4 * max(1.0, abs(float(s)))
+                for e, s in zip(errs, ref)):
+            fail("query[full]: the fused reranker scores disagree with "
+                 "score_pairs_multi in f32 (tolerance 1e-4 relative)")
+        if dtype == torch.bfloat16 and any(u > 8 for u in ulps):
+            fail("query[full]: the fused bf16 reranker scores are more "
+                 "than 8 bf16 ulps from score_pairs_multi's")
+
+    # the int8 corpus's top 5 against the f32 corpus's
+    fstore = rag.store
+    rag.store, rag._engine = qstore, None
+    rows8 = rag.query_batch(qs[:8])
+    rag.store, rag._engine = fstore, None
+    overlap = np.mean([len({r.chunk_id for r in a.results}
+                           & {r.chunk_id for r in b.results}) / 5
+                       for a, b in zip(rows, rows8)])
+    timings["int8"]["top5_overlap_with_f32_corpus"] = float(overlap)
+    print("query[full,int8 corpus]", json.dumps(timings["int8"]),
+          flush=True)
+    torch.cuda.synchronize()
+
+    # (c) nothing on the query half runs a kernel of the port
+    launches = launch_counts(K)
+    print("query launches", json.dumps(launches), flush=True)
+    if any(launches.values()):
+        fail(f"query: kernels launched on the query half: {launches}")
+    del rag, qstore, fstore
+    return {"query": launches}
+
+
 def large_v3_config(device: str, profile: str, window_batch: int,
                     **asr_fields):
     """The large-v3 paths' config: greedy at temperature 0 in English, as
     ``bench.py`` measures it, unless ``asr_fields`` say otherwise."""
     from audio_rag_tpu_torch.config import (
-        ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig)
+        ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig,
+        RerankingConfig)
 
     fields = {"language": "en", "temperature_fallback": False, **asr_fields}
     return AudioRAGConfig(
@@ -1485,6 +1825,7 @@ def large_v3_config(device: str, profile: str, window_batch: int,
                       seed=0, vad_filter=False, **fields,
                       **PROFILES[profile][0]),
         embedding=EmbeddingConfig(model="eval-small"),
+        reranking=RerankingConfig(backend="none"),
         chunking=ChunkingConfig(min_chunk_tokens=1, overlap_tokens=0),
         device=device)
 
@@ -1948,10 +2289,11 @@ def phase_beam(torch, K) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,spine,diarize,fallback,full,"
-                            "full_kv4,capacity,beam",
+                    default="build,kernels,spine,diarize,fallback,query,"
+                            "full,full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
-                         "diarize,fallback,full,full_kv4,capacity,beam")
+                         "diarize,fallback,query,full,full_kv4,capacity,"
+                         "beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2004,6 +2346,9 @@ def main() -> None:
             free_card(torch)
     if "fallback" in phases:
         by_path.update(phase_fallback(torch, K))
+        free_card(torch)
+    if "query" in phases:
+        by_path.update(phase_query(torch, K))
         free_card(torch)
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)

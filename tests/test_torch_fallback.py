@@ -360,10 +360,12 @@ SCHEMA_PAIRS = [
     (tconfig.ChunkingConfig, schema.ChunkingConfig),
     (tconfig.EmbeddingConfig, schema.EmbeddingConfig),
     (tconfig.RetrievalConfig, schema.RetrievalConfig),
+    (tconfig.RerankingConfig, schema.RerankingConfig),
 ]
 
 #: fields of the port's config that the schema does not have, by design
-PORT_ONLY = {"ASRConfig": {"seed"}, "EmbeddingConfig": {"seed"}}
+PORT_ONLY = {"ASRConfig": {"seed"}, "EmbeddingConfig": {"seed"},
+             "RerankingConfig": {"seed"}}
 
 
 @pytest.mark.parametrize("port,ref", SCHEMA_PAIRS,

@@ -2,9 +2,12 @@
 the port's ``AudioRAG`` and the JAX package's gives identical segment texts,
 chunk texts and top-2 rankings, the same DTW word times and segment bounds
 within 0.02 s, with diarization the same speakers and chunk bounds, and with
-the VAD filter the same spans transcribed; the port's entry points refuse a
-missing card instead of running on the CPU; the port and ``chip_smoke.py``
-import nothing of JAX or of the JAX package."""
+the VAD filter the same spans transcribed; with the default reranking (the
+trained eval-small cross-encoder) ``query``, ``query_batch`` and
+``get_context`` give the JAX package's rankings, scores and responses; the
+port's entry points refuse a missing card instead of running on the CPU;
+the port and ``chip_smoke.py`` import nothing of JAX or of the JAX
+package."""
 
 import ast
 import subprocess
@@ -27,6 +30,7 @@ from audio_rag_tpu_torch.config import (
     ChunkingConfig,
     DiarizationConfig,
     EmbeddingConfig,
+    RerankingConfig,
     RetrievalConfig,
 )
 from audio_rag_tpu_torch.core.exceptions import ConfigError
@@ -117,7 +121,7 @@ PROFILES = {
 }
 
 
-def _jax_rag(switches, diarization=None, max_tokens=8):
+def _jax_rag(switches, diarization=None, max_tokens=8, reranking=None):
     """The JAX package's pipeline as the port runs: one device, so each
     window's log-mel is clamped to its own max − 8 (``mel_sharded=False``;
     the test process's 8 virtual CPU devices would otherwise compute a
@@ -130,7 +134,7 @@ def _jax_rag(switches, diarization=None, max_tokens=8):
         **({"diarization": diarization} if diarization else {}),
         "embedding": {"backend": "bge-m3", "model": "eval-small"},
         "retrieval": {"backend": "tpu", "capacity_step": 128},
-        "reranking": {"backend": "none"},
+        "reranking": reranking or {"backend": "none"},
         "generation": {"backend": "none"},
         "tts": {"backend": "null"},
         "chunking": {"min_chunk_tokens": 1, "overlap_tokens": 0},
@@ -140,7 +144,7 @@ def _jax_rag(switches, diarization=None, max_tokens=8):
     return JaxAudioRAG(cfg)
 
 
-def _port_rag(switches, diarization=None, max_tokens=8):
+def _port_rag(switches, diarization=None, max_tokens=8, reranking=None):
     return AudioRAG(AudioRAGConfig(
         asr=ASRConfig(**{"model_size": "tiny-synth",
                          "compute_type": "float32", "vad_filter": False,
@@ -148,6 +152,8 @@ def _port_rag(switches, diarization=None, max_tokens=8):
         diarization=diarization or DiarizationConfig(),
         embedding=EmbeddingConfig(model="eval-small"),
         retrieval=RetrievalConfig(capacity_step=128),
+        # as the JAX side (``_jax_rag``): no reranking unless asked for
+        reranking=reranking or RerankingConfig(backend="none"),
         chunking=ChunkingConfig(max_tokens=max_tokens, min_chunk_tokens=1,
                                 overlap_tokens=0),
         device="cpu"))
@@ -261,6 +267,105 @@ def test_vad_filtered_transcribe_matches_jax(tmp_path, monkeypatch):
     assert [c[0] for c in chunks] == [c[0] for c in jax_chunks]
     assert ranks == jax_ranks
     assert ASRConfig().vad_filter and ASRConfig().vad_backend == "auto"
+
+
+# -- the query half, reranking by default ----------------------------------------
+
+def _score_tol(score):
+    """8e-3 (the ranking goldens' bound), or two bf16 ulps of the score
+    where that is more (cross-encoder logits are bf16 values)."""
+    a = abs(score)
+    return max(8e-3, 2 * 2.0 ** (np.floor(np.log2(a)) - 7) if a else 0)
+
+
+def _key(r):
+    """A chunk's identity across the packages (chunk ids are random)."""
+    return r.text, round(r.start, 3)
+
+
+def _assert_same_results(got, ref):
+    """The same chunks in the same order but for near-ties, scores within
+    :func:`_score_tol`."""
+    ref_score = {_key(r): r.score for r in ref}
+    assert len(got) == len(ref) and set(ref_score) == {_key(r) for r in got}
+    ranked = [ref_score[_key(r)] for r in got]
+    for r in got:
+        assert abs(r.score - ref_score[_key(r)]) <= _score_tol(
+            ref_score[_key(r)]), (got, ref)
+    assert all(a >= b - _score_tol(a) for a, b in zip(ranked, ranked[1:]))
+
+
+@pytest.fixture(scope="module")
+def reranking_rags(tmp_path_factory):
+    """The trained spine ingested by both packages with the default
+    reranking on the trained eval-small cross-encoder."""
+    if not (ASSETS_DIR / "asr_tiny_synth.npz").exists():
+        pytest.skip("trained ASR asset not built")
+    path = tmp_path_factory.mktemp("query") / "turns.wav"
+    write_wav(path, _turn_audio(), SR)
+    jax_rag = _jax_rag(PROFILES["fp32"], reranking={
+        "backend": "bge-reranker", "model": "eval-small"})
+    port = _port_rag(PROFILES["fp32"],
+                     reranking=RerankingConfig(model="eval-small"))
+    assert port.config.reranking.backend == "bge-reranker"
+    for rag in (jax_rag, port):
+        rag.ingest(str(path), collection="slice", diarize=False)
+    yield jax_rag, port, str(path)
+    jax_rag.unload_all()
+
+
+@pytest.mark.parametrize("search_type", ["dense", "sparse", "hybrid"])
+def test_query_reranks_as_jax(reranking_rags, search_type):
+    """``query`` with the config's reranking (fused engine: the three
+    chunks are reranked although they are fewer than top_k); for hybrid
+    search also with a metadata filter (embed → filtered search → rerank,
+    which keeps the retrieval scores of three candidates) and with
+    ``rerank=False``."""
+    jax_rag, port, path = reranking_rags
+    extra = ([{"metadata_filter": {"source": path}}, {"rerank": False}]
+             if search_type == "hybrid" else [])
+    for kw in [{}, *extra]:
+        for q in QUERIES:
+            ref = jax_rag.query(q, search_type=search_type,
+                                collection="slice", **kw)
+            got = port.query(q, search_type=search_type, collection="slice",
+                             **kw)
+            _assert_same_results(got.results, ref.results)
+            if list(map(_key, got.results)) == list(map(_key, ref.results)):
+                assert got.response == ref.response
+            assert set(got.to_dict()) == set(ref.to_dict())
+            assert set(got.stage_timings) == set(ref.stage_timings)
+    top = port.query(QUERIES[0], collection="slice").results
+    assert len(top) == 3 and "gradient" in top[0].text
+    assert top[0].score != port.query(QUERIES[0], collection="slice",
+                                      rerank=False).results[0].score
+
+
+def test_query_batch_and_context_match_jax(reranking_rags):
+    jax_rag, port, _ = reranking_rags
+    ref = jax_rag.query_batch(QUERIES, collection="slice")
+    got = port.query_batch(QUERIES, collection="slice")
+    for g, r in zip(got, ref):
+        _assert_same_results(g.results, r.results)
+        assert g.query == r.query and g.elapsed_s > 0
+        if list(map(_key, g.results)) == list(map(_key, r.results)):
+            assert g.response == r.response
+    for q in QUERIES:
+        ctx = port.get_context(q, collection="slice")
+        assert ctx.startswith("<context>") and ctx.count("<excerpt") == 3
+        if list(map(_key, port.query(q, collection="slice").results)) == \
+                list(map(_key, jax_rag.query(q, collection="slice").results)):
+            assert ctx == jax_rag.get_context(q, collection="slice")
+
+
+def test_llm_options_are_refused(reranking_rags):
+    _, port, _ = reranking_rags
+    for kw in ({"use_hyde": True}, {"generate_answer": True},
+               {"speak_answer": True}):
+        with pytest.raises(ConfigError, match="not ported"):
+            port.query(QUERIES[0], collection="slice", **kw)
+    assert port.query("nothing here", collection="empty").response == \
+        "No relevant content found."
 
 
 # -- entry points ---------------------------------------------------------------
