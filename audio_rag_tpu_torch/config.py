@@ -1,6 +1,7 @@
 """The port's own configuration: plain dataclasses holding the ASR,
-diarization, alignment, embedding, retrieval, reranking and chunking
-fields the ported slice uses, plus the device.
+diarization, alignment, embedding, retrieval, reranking, chunking,
+generation and query-expansion fields the ported slice uses, plus the
+device.
 
 Every field a dataclass shares with ``audio_rag_tpu/config/schema.py`` has
 the schema's name, default and bounds: ``AudioRAG()`` runs Whisper
@@ -8,17 +9,22 @@ large-v3 (seeded weights: no checkpoint is in the repository) with the
 temperature-fallback ladder on and the language detected, the BGE-M3
 embedder at XLM-R large shapes and the bge-reranker-base cross-encoder at
 XLM-R base shapes (both seeded, as the JAX models start without files),
-and ``query`` reranks. A caller who wants the committed trained models
+``query`` reranks, and an answer (``generate_answer=True``) or a HyDE
+passage comes from llama-3.2-3b with seeded weights through the wave
+scheduler. A caller who wants the committed trained models
 names them (``model_size="tiny-synth"``, ``model="eval-small"`` for the
-embedder and the reranker); one who wants greedy
+embedder, the reranker and the generator); one who wants greedy
 decoding at temperature 0 only passes ``temperature_fallback=False``, and
 ``language="en"`` skips the detection. The departures: that schema cannot
 name a torch backend or a CUDA device, so the port does not reuse it; the
-port has no per-section ``device``, no ``backend`` but the diarizer's and
-the reranker's, no ``checkpoint_path`` but theirs (no converted
-checkpoint is read: setting one raises) and no ``mel_sharded`` (one
-device: each window's mel is clamped alone) field; it adds the weight
-``seed`` of the presets without an asset and ``AudioRAGConfig.device``.
+port has no per-section ``device``, no ``backend`` but the diarizer's,
+the reranker's, the generator's and the expansion's, no
+``checkpoint_path`` but the diarizer's, the reranker's and the
+generator's (no converted checkpoint is read: setting one raises), no
+``mel_sharded`` (one device: each window's mel is clamped alone), no
+``timeout`` and none of the continuous batcher's or PRF's settings (those
+features are not ported); it adds the weight ``seed`` of the presets
+without an asset and ``AudioRAGConfig.device``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ __all__ = [
     "EmbeddingConfig",
     "RetrievalConfig",
     "RerankingConfig",
+    "GenerationConfig",
+    "ExpansionConfig",
     "AudioRAGConfig",
 ]
 
@@ -250,6 +258,79 @@ class RerankingConfig:
                                   f"{getattr(self, name)}")
 
 
+def _check_bounds(cfg, bounds) -> None:
+    for name, lo, hi in bounds:
+        v = getattr(cfg, name)
+        if v < lo or (hi is not None and v > hi):
+            raise ConfigError(f"{name} must be in [{lo}, {hi}], got {v}"
+                              if hi is not None else
+                              f"{name} must be ≥ {lo}, got {v}")
+
+
+@dataclass
+class GenerationConfig:
+    #: "llm-jax" (the schema's name of the in-process LLM backend: here the
+    #: port's model), "fake" (a fixed answer from the prompt) or "none"
+    backend: str = "llm-jax"
+    #: a ``models.llm.LLM_PRESETS`` key ("eval-small" loads the committed
+    #: trained asset; other names, unknown ones as llama-3.2-3b, start from
+    #: seeded weights)
+    model: str = "llama-3.2-3b"
+    temperature: float = 0.7
+    max_tokens: int = 1024
+    #: a converted LLM checkpoint (not ported: raises when set)
+    checkpoint_path: str | None = None
+    #: int8 decode-step linears and head (int8-weight matmul kernel)
+    decoder_int8: bool = False
+    #: int4 decode-step linears and head, group-wise scales (int4-weight
+    #: matmul kernel); takes precedence over ``decoder_int8``
+    decoder_int4: bool = False
+    #: with ``decoder_int8``: int4 for the head only
+    lm_head_int4: bool = False
+    #: speculative greedy decode of single-row waves (not ported: such a
+    #: request raises)
+    speculative_k: int = 0
+    #: prompts keep their last this many tokens
+    max_prompt_tokens: int = 2048
+    #: coalesce concurrent requests into one wave (engine/scheduler.py)
+    use_scheduler: bool = True
+    #: "wave" (each batch decoded to the end); "continuous" is not ported
+    #: (raises when the generator is built)
+    scheduler_mode: str = "wave"
+    scheduler_max_batch: int = 16
+    scheduler_max_wait_ms: float = 10.0
+    #: seed of the weights of presets without a committed asset
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.backend not in ("llm-jax", "fake", "none"):
+            raise ConfigError(f"generation backend must be 'llm-jax', "
+                              f"'fake' or 'none', got {self.backend!r}")
+        if self.scheduler_mode not in ("wave", "continuous"):
+            raise ConfigError(f"scheduler_mode must be 'wave' or "
+                              f"'continuous', got {self.scheduler_mode!r}")
+        _check_bounds(self, (
+            ("temperature", 0.0, 2.0), ("max_tokens", 1, 8192),
+            ("speculative_k", 0, 8), ("max_prompt_tokens", 64, None),
+            ("scheduler_max_batch", 1, None),
+            ("scheduler_max_wait_ms", 0.0, None)))
+
+
+@dataclass
+class ExpansionConfig:
+    #: "hyde" (embed an LLM-written passage that answers the query) or
+    #: "none"; "prf" (pseudo-relevance feedback) is not ported: a query
+    #: that would expand by it raises
+    backend: str = "none"
+    num_hypotheses: int = 1
+
+    def __post_init__(self):
+        if self.backend not in ("hyde", "prf", "none"):
+            raise ConfigError(f"expansion backend must be 'hyde', 'prf' or "
+                              f"'none', got {self.backend!r}")
+        _check_bounds(self, (("num_hypotheses", 1, 3),))
+
+
 @dataclass
 class AudioRAGConfig:
     asr: ASRConfig = field(default_factory=ASRConfig)
@@ -259,5 +340,7 @@ class AudioRAGConfig:
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
     reranking: RerankingConfig = field(default_factory=RerankingConfig)
+    generation: GenerationConfig = field(default_factory=GenerationConfig)
+    expansion: ExpansionConfig = field(default_factory=ExpansionConfig)
     #: "cuda" (default) or "cpu"; CUDA without a card raises
     device: str = "cuda"

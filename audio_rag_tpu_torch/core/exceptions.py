@@ -12,6 +12,7 @@ __all__ = [
     "AudioProcessingError",
     "TranscriptionError",
     "RetrievalError",
+    "GenerationError",
 ]
 
 
@@ -38,3 +39,7 @@ class TranscriptionError(AudioRAGError):
 
 class RetrievalError(AudioRAGError):
     """Vector store / search failure."""
+
+
+class GenerationError(AudioRAGError):
+    """LLM answer-synthesis failure."""

@@ -1,0 +1,191 @@
+"""The in-process LLM generator of the port (counterpart of
+``audio_rag_tpu/generation/llm_jax.py::LLMGenerator``): prompts become
+one batched wave decode (:func:`~audio_rag_tpu_torch.models.llm.
+llm_generate`) on the configured device.
+
+The JAX generator's batching is copied exactly: the system prompt joined
+ahead of each prompt, each prompt's last ``max_prompt_tokens`` tokens
+(and never more than the window less 8), left-padding with EOS to a
+power-of-two prompt bucket, ``max_new`` cut to the window with a
+``GenerationError`` when nothing is left, a power-of-two batch whose
+filler rows copy row 0, one key ``PRNGKey(abs(hash(tuple(texts))) %
+2**31)`` per batch (Python's string hash is salted per process, so sampled
+answers repeat only within one process), and EOS trimming.
+``decoder_int8``/``decoder_int4``/``lm_head_int4`` quantize the decode
+step's linears once at load (int4 beating int8). "eval-small" loads the
+committed trained asset and its tokenizer side file (and raises when the
+asset is missing); other presets start from weights seeded on the
+device.
+
+Not ported, and raising ``ConfigError``: checkpoints and the speculative
+program the JAX generator runs for a greedy single-row wave under
+``speculative_k``. A failure raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from audio_rag_tpu_torch.checkpoint import ASSETS_DIR
+from audio_rag_tpu_torch.config import GenerationConfig
+from audio_rag_tpu_torch.core.exceptions import ConfigError, GenerationError
+from audio_rag_tpu_torch.device import resolve_device
+from audio_rag_tpu_torch.engine.scheduler import word_chunks
+from audio_rag_tpu_torch.models.llm import (
+    LLM_PRESETS,
+    LLMDims,
+    init_llm,
+    llm_generate,
+    quantize_llm_weights,
+)
+from audio_rag_tpu_torch.ops import random as jrandom
+from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, load_reverse_map
+from audio_rag_tpu_torch.weights import load_llm_small
+
+__all__ = ["LLMGenerator"]
+
+
+class LLMGenerator:
+    def __init__(self, config: GenerationConfig | None = None,
+                 device: str | torch.device = "cuda"):
+        self.config = config or GenerationConfig()
+        self.device = resolve_device(device)
+        self.model = (self.config.model if self.config.model in LLM_PRESETS
+                      else "llama-3.2-3b")
+        self.dims: LLMDims = LLM_PRESETS[self.model]
+        self.dtype = torch.bfloat16
+        # decode-step weight width: int4 > int8 > off; lm_head_int4 narrows
+        # the head only
+        self._qbits = 4 if self.config.decoder_int4 else (
+            8 if self.config.decoder_int8 else 0)
+        self._lm_head_bits = 4 if (self._qbits
+                                   and self.config.lm_head_int4) else None
+        self._params = None
+        self._params_q8 = None
+        self._tok = None
+        #: generated ids per prompt of the last batch, EOS excluded
+        self.last_token_counts: list[int] = []
+        self.last_token_ids: list[list[int]] = []
+        #: the last wave's batch rows, prompt bucket, decode steps and
+        #: prefill / decode seconds
+        self.last_stats: dict = {}
+
+    @property
+    def is_loaded(self) -> bool:
+        return self._params is not None
+
+    def load(self) -> None:
+        if self.is_loaded:
+            return
+        if self.config.checkpoint_path:
+            raise ConfigError(
+                "LLM checkpoints (restore_params) are not ported; leave "
+                "checkpoint_path unset",
+                context={"checkpoint_path": self.config.checkpoint_path})
+        if self.model == "eval-small":
+            params = load_llm_small(self.device, self.dtype)
+            if params is None:
+                raise ConfigError(
+                    "the trained eval-small generator's asset "
+                    "(audio_rag_tpu/assets/llm_small.npz) is missing",
+                    context={"model": "eval-small"})
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.config.seed)
+            params = init_llm(self.dims, gen, self.dtype)
+        if self._qbits:
+            self._params_q8 = quantize_llm_weights(
+                params, self.dims, self._qbits,
+                lm_head_bits=self._lm_head_bits)
+        self._tok = get_tokenizer(vocab_size=self.dims.vocab)
+        if self.model == "eval-small":
+            # the trained asset's emittable words: a fresh process decodes
+            # only ids it has encoded without them
+            load_reverse_map(self._tok, ASSETS_DIR / "llm_small_vocab.json")
+        self._params = params
+
+    def unload(self) -> None:
+        self._params = self._params_q8 = self._tok = None
+
+    def check_availability(self) -> bool:
+        return self.is_loaded
+
+    def generate(self, prompt: str, system: str | None = None,
+                 max_tokens: int | None = None,
+                 temperature: float | None = None) -> str:
+        return self.generate_batch([prompt], system=system,
+                                   max_tokens=max_tokens,
+                                   temperature=temperature)[0]
+
+    def generate_batch(self, prompts: list[str], system: str | None = None,
+                       max_tokens: int | None = None,
+                       temperature: float | None = None) -> list[str]:
+        """Decode the prompts as one wave; answers in prompt order."""
+        self.load()
+        if not prompts:
+            return []
+        texts = [f"{system}\n\n{p}" if system else p for p in prompts]
+        cap = min(self.config.max_prompt_tokens, self.dims.max_len - 8)
+        seqs = [self._tok.encode(t)[-cap:] for t in texts]
+        max_p = max(len(s) for s in seqs)
+        P = min(1 << (max_p - 1).bit_length(), cap)  # pow-2 prompt bucket
+        pad_id = self._tok.eos_id
+        batch = np.full((len(seqs), P), pad_id, np.int64)
+        mask = np.zeros((len(seqs), P), bool)
+        for i, s in enumerate(seqs):  # left-padded: every row ends at P
+            s = s[-P:]
+            batch[i, P - len(s):] = s
+            mask[i, P - len(s):] = True
+        max_new = min(max_tokens or self.config.max_tokens,
+                      self.dims.max_len - P - 1)
+        if max_new <= 0:
+            raise GenerationError(
+                "prompt exhausts the context window",
+                context={"prompt_tokens": max_p,
+                         "max_len": self.dims.max_len})
+        temp = self.config.temperature if temperature is None else temperature
+        # pow-2 batch bucket; filler rows copy row 0 (an all-pad row would
+        # softmax over nothing) and are dropped
+        B = len(seqs)
+        B_pad = 1 << (B - 1).bit_length()
+        if B_pad != B:
+            batch = np.concatenate([batch, np.tile(batch[:1], (B_pad - B, 1))])
+            mask = np.concatenate([mask, np.tile(mask[:1], (B_pad - B, 1))])
+        if temp <= 0.0 and self.config.speculative_k > 0 and B_pad == 1:
+            raise ConfigError(
+                "speculative generation (a greedy single-row wave under "
+                "speculative_k) is not ported (ROADMAP.md §1 item 7); set "
+                "speculative_k=0",
+                context={"speculative_k": self.config.speculative_k})
+        stats: dict = {}
+        out = llm_generate(
+            self._params, self.dims,
+            torch.from_numpy(batch).to(self.device), max_new, pad_id,
+            temperature=float(temp),
+            rng=jrandom.PRNGKey(abs(hash(tuple(texts))) % (2 ** 31)),
+            dtype=self.dtype,
+            prompt_mask=torch.from_numpy(mask).to(self.device),
+            decoder_q8=self._params_q8, stats=stats)
+        out = out.cpu().numpy()
+        results, counts, ids = [], [], []
+        for i in range(B):
+            gen = out[i, P:]
+            eos = np.nonzero(gen == pad_id)[0]
+            if eos.size:
+                gen = gen[:eos[0]]
+            counts.append(int(gen.size))
+            ids.append(gen.tolist())
+            results.append(self._tok.decode(gen.tolist()).strip())
+        self.last_token_counts = counts
+        self.last_token_ids = ids
+        self.last_stats = {"rows": B_pad, "prompt_bucket": P, **stats}
+        return results
+
+    def generate_stream(self, prompt: str, system: str | None = None,
+                        max_tokens: int | None = None,
+                        temperature: float | None = None) -> Iterable[str]:
+        return word_chunks(self.generate(prompt, system, max_tokens,
+                                         temperature))

@@ -23,13 +23,13 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 
 from audio_rag_tpu_torch.models.layers import (
     Params,
     layer_norm,
     linear,
     mm_f32,
+    sum_in_windows,
     take_layer,
 )
 
@@ -93,23 +93,6 @@ def init_bert(dims: BertDims, gen: torch.Generator,
     }
 
 
-def _sum_in_windows(x: torch.Tensor) -> torch.Tensor:
-    """Σ over the last axis in XLA:CPU's order: windows of 32 elements,
-    each summed in order, then the window sums in order."""
-    d = x.shape[-1]
-    n = -(-d // 32)
-    if n * 32 != d:
-        x = F.pad(x, (0, n * 32 - d))
-    w = x.reshape(*x.shape[:-1], n, 32)
-    acc = w[..., 0]
-    for j in range(1, 32):
-        acc = acc + w[..., j]
-    total = acc[..., 0]
-    for j in range(1, n):
-        total = total + acc[..., j]
-    return total
-
-
 def _layer_norm(p: Params, x: torch.Tensor, dtype: torch.dtype,
                 eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of f32 rows, rounded to ``dtype``: the JAX package's
@@ -118,9 +101,9 @@ def _layer_norm(p: Params, x: torch.Tensor, dtype: torch.dtype,
     if x.is_cuda:
         return layer_norm(p, x).to(dtype)
     inv_d = float(torch.tensor(1.0) / x.shape[-1])
-    mu = _sum_in_windows(x) * inv_d
+    mu = sum_in_windows(x) * inv_d
     c = x - mu[..., None]
-    r = torch.rsqrt(_sum_in_windows(c * c) * inv_d + eps)
+    r = torch.rsqrt(sum_in_windows(c * c) * inv_d + eps)
     return (c * r[..., None] * p["g"].float() + p["b"].float()).to(dtype)
 
 

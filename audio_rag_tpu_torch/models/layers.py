@@ -12,6 +12,14 @@ so the product is not rounded to bf16 before the bias is added. f32
 products on CUDA run in full f32 whatever PyTorch's TF32 switches say
 (:func:`full_f32_matmul`, scoped to the call; no process-wide flag is set).
 
+The llama-style pieces (:func:`rms_norm`, :func:`swiglu`,
+:func:`apply_rope`) round where the JAX package's compiled CPU program
+rounds: each elementwise step of ``jax.nn.silu`` in the compute dtype,
+rope in f32 then once to the compute dtype, the norm's output once after
+the gain; :func:`rms_norm` reads its input as given, so a caller that
+holds the residual stream in f32 (as XLA does between a sum and the norm
+that reads it) passes the f32 sum.
+
 Three routes go to the port's hand-written kernels
 (:mod:`audio_rag_tpu_torch.ops.kernels`): :func:`_attend` sends unmasked
 attention with D ≤ 128 to ``flash_attention``, and :func:`linear_q8` sends
@@ -24,6 +32,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -51,6 +60,16 @@ __all__ = [
     "quantize_linear_q4",
     "linear_q8",
     "layer_norm",
+    "sum_in_windows",
+    "rms_norm",
+    "silu",
+    "swiglu",
+    "rope_frequencies",
+    "apply_rope",
+    "normal_init",
+    "embedding_init",
+    "mha_init",
+    "swiglu_init",
     "gelu",
     "mlp",
     "mha",
@@ -184,6 +203,107 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     y = F.layer_norm(xf, (xf.shape[-1],), p["g"].float(), p["b"].float(), eps)
     return y.to(x.dtype)
+
+
+def sum_in_windows(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis in XLA:CPU's order: windows of 32 elements,
+    each summed in order, then the window sums in order."""
+    d = x.shape[-1]
+    n = -(-d // 32)
+    if n * 32 != d:
+        x = F.pad(x, (0, n * 32 - d))
+    w = x.reshape(*x.shape[:-1], n, 32)
+    acc = w[..., 0]
+    for j in range(1, 32):
+        acc = acc + w[..., j]
+    total = acc[..., 0]
+    for j in range(1, n):
+        total = total + acc[..., j]
+    return total
+
+
+def rms_norm(p: Params, x: torch.Tensor, dtype: torch.dtype | None = None,
+             eps: float = 1e-6) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·g in f32, rounded to ``dtype`` (default:
+    x's). The mean is the sum times the f32 reciprocal of the width, as
+    XLA compiles it; on the CPU the sum runs in XLA:CPU's order."""
+    xf = x.float()
+    sq = xf * xf
+    ss = sq.sum(-1) if x.is_cuda else sum_in_windows(sq)
+    inv_d = float(torch.tensor(1.0) / x.shape[-1])
+    r = torch.rsqrt(ss * inv_d + eps)
+    return (xf * r[..., None] * p["g"].float()).to(dtype or x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x·1/(1 + exp(−x)) with every step rounded to x's dtype, as XLA
+    expands ``jax.nn.silu``."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def swiglu(p: Params, x: torch.Tensor,
+           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """down(silu(gate(x))·up(x)), each linear rounded to ``dtype``."""
+    gate = linear(p["gate"], x, dtype)
+    return linear(p["down"], silu(gate) * linear(p["up"], x, dtype), dtype)
+
+
+def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) tables of shape (max_len, head_dim/2), f32 (computed in
+    float64 like the JAX package's numpy tables, then cast)."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    freqs = np.outer(np.arange(max_len), inv)
+    return np.cos(freqs).astype(np.float32), np.sin(freqs).astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, H, T, D) by f32 cos/sin broadcastable to (..., T, D/2):
+    the halves' rotation in f32, rounded to x's dtype once."""
+    xf = x.float()
+    h = xf.shape[-1] // 2
+    x1, x2 = xf[..., :h], xf[..., h:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def normal_init(gen: torch.Generator, shape: tuple[int, ...], scale: float,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Seeded normal·``scale`` drawn in f32 on ``gen``'s device, stored in
+    ``dtype``."""
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int,
+                   dtype: torch.dtype = torch.float32) -> Params:
+    """{"table": (vocab, dim)} of normal·0.02 (the JAX package's init)."""
+    return {"table": normal_init(gen, (vocab, dim), 0.02, dtype)}
+
+
+def mha_init(gen: torch.Generator, d_model: int, n_heads: int,
+             n_kv_heads: int | None = None,
+             dtype: torch.dtype = torch.float32) -> Params:
+    """Bias-free attention projections (the LLM's), grouped-query when
+    ``n_kv_heads`` < ``n_heads`` (k and v then n_kv_heads·head_dim wide);
+    normal·d^-½ weights, as the JAX ``mha_init``."""
+    kv_d = (n_kv_heads or n_heads) * (d_model // n_heads)
+    return {name: {"w": normal_init(gen, (d_model, dout), d_model ** -0.5,
+                                    dtype)}
+            for name, dout in (("q", d_model), ("k", kv_d), ("v", kv_d),
+                               ("o", d_model))}
+
+
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Bias-free gate, up (d_model → d_ff) and down (d_ff → d_model)."""
+    return {"gate": {"w": normal_init(gen, (d_model, d_ff), d_model ** -0.5,
+                                      dtype)},
+            "up": {"w": normal_init(gen, (d_model, d_ff), d_model ** -0.5,
+                                    dtype)},
+            "down": {"w": normal_init(gen, (d_ff, d_model), d_ff ** -0.5,
+                                      dtype)}}
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

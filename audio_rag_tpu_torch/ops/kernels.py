@@ -330,6 +330,7 @@ _WQ_SMEM_SM = 200 * 1024  # what the rings of an SM's blocks may share
 _WQ_PART_MAX = 96 * 1024  # a block's finished sums, read by its cluster
 WQ_SMS = 132  # H100 SXM streaming multiprocessors
 _WQ_BLOCKS = 200  # blocks a split call aims at
+_WQ_SLICE_STAGES = 6  # ring stages a din slice aims to stay within
 
 
 class WqPlan(NamedTuple):
@@ -373,23 +374,26 @@ def wq_part_bytes(wn: int, nt: int) -> int:
 def wq_plan(B: int, din: int, dout: int, bits: int = 8,
             group: int | None = None) -> WqPlan:
     """The launch plan of one weight-quantized matmul call (sizes from
-    ``scripts/sweep_wq_plan.py`` on an H100). Every x row of a row block
-    sits in one block, so each weight byte is read once per call. A
-    weight as wide as the logits head fills the card with 256-column tiles
-    and is not split. A decode block's weight (1280 or 5120 columns) takes
-    64-column tiles (128 at 5120 columns or more than 64 x rows), the
-    block's other warps sharing din, and din is cut into up to 8 slices, one
-    cluster a tile, for about 200 blocks. The ring is as deep as the blocks
-    an SM holds at once leave room for."""
+    ``scripts/sweep_wq_plan.py`` on an H100, at Whisper large-v3's and
+    llama-3.2-3b's decode shapes). Every x row of a row block sits in one
+    block, so each weight byte is read once per call. A weight as wide as
+    the logits head fills the card with 256-column tiles and is not split.
+    A decode block's weight takes 64-column tiles (Whisper's 1280 columns),
+    128 at 2048 columns or more (or more than 64 x rows) and 256 at 8192 or
+    more (llama's fused gate/up), the block's other warps sharing din, and
+    din is cut into up to 8 slices, one cluster a tile, for about 200
+    blocks and at most 6 ring stages a slice. The ring is as deep as the
+    blocks an SM holds at once leave room for."""
     rows = min(B, WQ_ROWS)
     nt = next(n for n in WQ_NT if 8 * n >= rows)
     group_mode = bits == 4 and group is not None and group % 16 == 0
     row_blocks = -(-B // WQ_ROWS)
     n_stages = -(-din // WQ_STAGE_K)
-    if -(-dout // (WQ_WARP_COLS * WQ_WARPS)) * row_blocks >= WQ_SMS:
+    if (dout >= 8192
+            or -(-dout // (WQ_WARP_COLS * WQ_WARPS)) * row_blocks >= WQ_SMS):
         wn = WQ_WARPS
     else:
-        wn = 4 if dout >= 4096 or nt >= 8 else 2
+        wn = 4 if dout >= 2048 or nt >= 8 else 2
     while wn > 2 and wq_part_bytes(wn, nt) > _WQ_PART_MAX:
         wn //= 2
     wk = WQ_WARPS // wn
@@ -397,7 +401,9 @@ def wq_plan(B: int, din: int, dout: int, bits: int = 8,
     tiles = col_tiles * row_blocks
     splits = 1
     if tiles < WQ_SMS:
-        splits = min(WQ_SPLITS_MAX, n_stages, -(-_WQ_BLOCKS // tiles))
+        splits = min(WQ_SPLITS_MAX, n_stages,
+                     max(-(-_WQ_BLOCKS // tiles),
+                         -(-n_stages // _WQ_SLICE_STAGES)))
     k_stages = -(-n_stages // splits)
     splits = -(-n_stages // k_stages)
     slot = wq_slot_bytes(bits, wn, nt)

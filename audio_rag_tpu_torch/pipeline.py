@@ -1,8 +1,8 @@
 """``AudioRAG`` of the port: ingest audio into a collection, query it.
 
 Follows ``audio_rag_tpu/pipeline/ingestion.py::IngestionPipeline.ingest``
-and ``pipeline/query.py::QueryPipeline`` with contextual headers, query
-expansion, answer generation and TTS off:
+and ``pipeline/query.py::QueryPipeline`` with contextual headers and TTS
+off:
 
 * ingest: transcribe with DTW word times → (``diarize=True``, the default)
   diarize → attribute words to speakers → rebuild the transcript by
@@ -11,10 +11,16 @@ expansion, answer generation and TTS off:
 * query: without a metadata filter, the batched
   :class:`~audio_rag_tpu_torch.engine.query_engine.QueryEngine` (embed →
   dense / sparse / hybrid (RRF) search → top ``initial_k`` → cross-encoder
-  → top ``top_k``); with one, embed → filtered search of ``initial_k``
-  (``top_k`` without reranking) → rerank with the query. Reranking is on
-  unless the config's backend is "none" or the call passes
-  ``rerank=False``.
+  → top ``top_k``); with one, or when HyDE replaced the query's text,
+  embed → filtered search of ``initial_k`` (``top_k`` without reranking)
+  → rerank with the query. Reranking is on unless the config's backend is
+  "none" or the call passes ``rerank=False``. HyDE (``use_hyde``, on by
+  default when ``expansion.backend`` is "hyde") embeds a passage the
+  generator writes; ``generate_answer=True`` asks the generator (the
+  wave-scheduled LLM by default) for an answer from ``SYSTEM_PROMPT`` and
+  ``build_rag_prompt`` over the results. A failing answer or passage
+  raises (the JAX pipeline logs it and goes on); PRF expansion and speech
+  are not ported and raise ``ConfigError``.
 
 Components are built lazily on the configured device (CUDA by default; a
 CUDA request without a card raises).
@@ -42,17 +48,18 @@ from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.diarization import create_diarizer
 from audio_rag_tpu_torch.embeddings.bge import BGEM3Embedder
 from audio_rag_tpu_torch.engine.query_engine import QueryEngine
+from audio_rag_tpu_torch.expansion.hyde import HyDEExpander
+from audio_rag_tpu_torch.generation.base import create_generator
+from audio_rag_tpu_torch.generation.prompts import (
+    SYSTEM_PROMPT,
+    build_rag_prompt,
+    format_timestamp,
+)
 from audio_rag_tpu_torch.reranking import create_reranker
 from audio_rag_tpu_torch.retrieval.store import VectorStore
 
 __all__ = ["AudioRAG", "IngestionResult", "QueryResult", "format_context",
            "format_timestamp"]
-
-
-def format_timestamp(seconds: float) -> str:
-    """``MM:SS`` (copy of ``audio_rag_tpu/generation/prompts.py``)."""
-    m, s = divmod(int(max(seconds, 0)), 60)
-    return f"{m:02d}:{s:02d}"
 
 
 def format_context(results: list[RetrievalResult]) -> str:
@@ -123,6 +130,9 @@ class AudioRAG:
         self._reranker = None
         self._reranker_built = False
         self._engine: QueryEngine | None = None
+        self._generator = None
+        self._generator_built = False
+        self._expander: HyDEExpander | None = None
         self.chunker = SpeakerTurnChunker(self.config.chunking)
         self.store = VectorStore(self.config.retrieval, device=self.device)
 
@@ -161,6 +171,29 @@ class AudioRAG:
         return self._reranker
 
     @property
+    def generator(self):
+        """The configured generator, loaded; None for backend "none"."""
+        if not self._generator_built:
+            self._generator = create_generator(self.config.generation,
+                                               device=self.device)
+            self._generator_built = True
+        if self._generator is not None:
+            self._generator.load()
+        return self._generator
+
+    @property
+    def expander(self) -> HyDEExpander:
+        if self.config.expansion.backend == "prf":
+            raise ConfigError(
+                "expansion backend 'prf' (pseudo-relevance feedback) is not "
+                "ported (ROADMAP.md §1 item 7); use 'hyde' or 'none'",
+                context={"backend": "prf"})
+        if self._expander is None:
+            self._expander = HyDEExpander(self.config.expansion,
+                                          self.generator)
+        return self._expander
+
+    @property
     def query_engine(self) -> QueryEngine:
         if self._engine is None:
             self._engine = QueryEngine(self.embedder, self.store)
@@ -172,6 +205,17 @@ class AudioRAG:
         engine.collection = collection
         engine.reranker = self.reranker if do_rerank else None
         return engine
+
+    def unload_all(self) -> None:
+        """Release every model the pipeline loaded, as the JAX
+        orchestrator's ``unload_all`` does: the generator's scheduler
+        stops and its weights go, and each stage is built anew on its next
+        use. The store stays."""
+        if self._generator is not None:
+            self._generator.unload()
+        self._asr = self._diarizer = self._embedder = self._engine = None
+        self._reranker = self._generator = self._expander = None
+        self._reranker_built = self._generator_built = False
 
     def _do_rerank(self, rerank: bool | None) -> bool:
         return (self.config.reranking.backend != "none" if rerank is None
@@ -233,35 +277,42 @@ class AudioRAG:
               metadata_filter: dict[str, Any] | None = None) -> QueryResult:
         """The top ``top_k`` chunks for ``query``, reranked unless the
         config's backend is "none" or ``rerank=False``; ``response`` holds
-        them as ``[speaker at MM:SS] text`` lines."""
-        for name, on in (("use_hyde", use_hyde),
-                         ("generate_answer", generate_answer),
-                         ("speak_answer", speak_answer)):
-            if on:
-                raise ConfigError(
-                    f"{name}=True needs the LLM (HyDE, answers, speech), "
-                    "which is not ported yet (ROADMAP.md §1 item 7)",
-                    context={name: on})
+        them as ``[speaker at MM:SS] text`` lines, ``answer`` the
+        generator's answer with ``generate_answer``, ``expanded_query`` the
+        HyDE passage that was embedded."""
+        if speak_answer:
+            raise ConfigError(
+                "speak_answer=True needs TTS, which is not ported yet "
+                "(ROADMAP.md §1 item 8)", context={"speak_answer": True})
         t_start = time.perf_counter()
         timings: dict[str, float] = {}
         top_k = top_k or self.config.retrieval.top_k
         search_type = search_type or self.config.retrieval.search_type
         do_rerank = self._do_rerank(rerank)
         initial_k = self.config.reranking.initial_k
+        if use_hyde is None:
+            use_hyde = self.config.expansion.backend in ("hyde", "prf")
 
         def clock(name: str, t0: float) -> float:
             timings[name] = round(time.perf_counter() - t0, 4)
             return time.perf_counter()
 
         t0 = time.perf_counter()
-        if metadata_filter is None:
+        expanded = None
+        embed_text = query
+        if use_hyde:
+            expanded = self.expander.expand_single(query)
+            if expanded != query:
+                embed_text = expanded
+            t0 = clock("hyde", t0)
+        if embed_text == query and metadata_filter is None:
             engine = self._engine_for(collection, do_rerank)
             results = engine.query_batch(
                 [query], top_k=top_k, search_type=search_type,
                 initial_k=initial_k, rerank=do_rerank)[0]
-            clock("fused", t0)
+            t0 = clock("fused", t0)
         else:
-            emb = self.embedder.embed_query(query)
+            emb = self.embedder.embed_query(embed_text)
             t0 = clock("embed", t0)
             results = self.store.search(
                 emb, top_k=initial_k if do_rerank else top_k,
@@ -270,13 +321,20 @@ class AudioRAG:
             t0 = clock("search", t0)
             reranker = self.reranker if do_rerank else None
             if reranker is not None and results:
+                # the original query, not the passage
                 results = reranker.rerank(query, results, top_k)
-                clock("rerank", t0)
+                t0 = clock("rerank", t0)
             else:
                 results = results[:top_k]
+        answer = None
+        if generate_answer and results and self.generator is not None:
+            answer = self.generator.generate(build_rag_prompt(query, results),
+                                             system=SYSTEM_PROMPT)
+            clock("generate", t0)
         return QueryResult(
             query=query, results=results,
-            response=_build_response(results),
+            response=_build_response(results), answer=answer,
+            expanded_query=expanded,
             elapsed_s=round(time.perf_counter() - t_start, 4),
             stage_timings=timings)
 

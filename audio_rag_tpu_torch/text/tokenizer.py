@@ -1,6 +1,7 @@
 """Deterministic word-hash tokenizer and batch padding (copy of
-``audio_rag_tpu/text/tokenizer.py::HashWordTokenizer``/``pad_batch``), the
-cross-encoder's pair layout included.
+``audio_rag_tpu/text/tokenizer.py::HashWordTokenizer``/``pad_batch``/
+``get_tokenizer``), the cross-encoder's pair layout included, and the
+generator's reverse-map side file.
 
 Equal words map to equal ids, stable across processes and across the two
 packages, so the port's sparse/lexical retrieval matches the JAX package's
@@ -10,19 +11,24 @@ token for token.
 from __future__ import annotations
 
 import hashlib
+import json
 import re
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 
-__all__ = ["HashWordTokenizer", "pad_batch"]
+__all__ = ["HashWordTokenizer", "get_tokenizer", "load_reverse_map",
+           "pad_batch"]
 
 _WORD_RE = re.compile(r"[a-z0-9]+(?:'[a-z]+)?")
 
 
 class HashWordTokenizer:
     """ids: 0=pad, 1=cls/bos, 2=sep/eos, 3=unk; words hash into
-    [n_special, vocab)."""
+    [n_special, vocab). ``decode`` reads the reverse map of the words this
+    instance has encoded (and of a side file, :func:`load_reverse_map`);
+    an id it has not seen decodes as ``<unk>``."""
 
     n_special = 4
 
@@ -68,6 +74,26 @@ class HashWordTokenizer:
         ib = ib[: max(budget, 0)]
         out = [self.cls_id, *ia, self.sep_id, self.sep_id, *ib, self.sep_id]
         return out[:max_len]
+
+
+def get_tokenizer(vocab_size: int = 30000) -> HashWordTokenizer:
+    """The hash tokenizer of ``vocab_size`` ids (the JAX package's
+    ``get_tokenizer`` without a checkpoint directory)."""
+    return HashWordTokenizer(vocab_size)
+
+
+def load_reverse_map(tok: HashWordTokenizer, path: str | Path) -> int:
+    """Add a JSON side file's id → word entries to ``tok``'s reverse map
+    where the id has no word yet, so that a fresh process decodes a
+    trained model's emissions; returns the entries read (0 when the file
+    is missing)."""
+    p = Path(path)
+    if not p.exists():
+        return 0
+    side = json.loads(p.read_text())
+    for k, v in side.items():
+        tok._reverse.setdefault(int(k), v)
+    return len(side)
 
 
 def pad_batch(

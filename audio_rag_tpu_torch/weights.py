@@ -19,8 +19,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
 from audio_rag_tpu_torch.models.bert import BertDims
 from audio_rag_tpu_torch.models.layers import q4_group
+from audio_rag_tpu_torch.models.llm import LLM_PRESETS, LLMDims
 from audio_rag_tpu_torch.models.speaker import SpeakerDims
 from audio_rag_tpu_torch.models.whisper import WhisperDims
 
@@ -30,6 +32,7 @@ __all__ = [
     "cross_encoder_spec",
     "speaker_spec",
     "vad_spec",
+    "llm_spec",
     "whisper_params",
     "whisper_q8_params",
     "whisper_cross_kv",
@@ -38,6 +41,8 @@ __all__ = [
     "cross_encoder_params",
     "speaker_params",
     "vad_params",
+    "convert_llm",
+    "load_llm_small",
 ]
 
 Shape = tuple[int, ...]
@@ -180,6 +185,24 @@ def vad_spec(n_mels: int = 80, channels: int = 64) -> dict[str, Shape]:
     return spec
 
 
+def llm_spec(dims: LLMDims) -> dict[str, Shape]:
+    """Slash-joined key → shape of every leaf of an LLM tree (``init_llm``
+    layout: bias-free linears, RMSNorm gains)."""
+    L, d = dims.n_layers, dims.d_model
+    kv_d = dims.n_kv_heads * (d // dims.n_heads)
+    spec: dict[str, Shape] = {"tok_emb/table": (dims.vocab, d),
+                              "ln_f/g": (d,),
+                              "blocks/ln_attn/g": (L, d),
+                              "blocks/ln_mlp/g": (L, d)}
+    for name, dout in (("q", d), ("k", kv_d), ("v", kv_d), ("o", d)):
+        spec.update(_lin(f"blocks/attn/{name}", L, d, dout, bias=False))
+    spec.update(_lin("blocks/mlp/gate", L, d, dims.d_ff, bias=False))
+    spec.update(_lin("blocks/mlp/up", L, d, dims.d_ff, bias=False))
+    spec.update(_lin("blocks/mlp/down", L, dims.d_ff, d, bias=False))
+    spec.update(_lin("lm_head", None, d, dims.vocab, bias=False))
+    return spec
+
+
 def _to_tensor(arr: Any, device: torch.device,
                dtype: torch.dtype | None) -> torch.Tensor:
     a = np.array(arr)  # a copy: the tree's arrays may be read-only views
@@ -268,6 +291,25 @@ def vad_params(tree: dict, device: str | torch.device = "cpu",
                        "(5, n_mels, channels)")
     return _float_tree(_nest(flat), vad_spec(shape[1], shape[2]), "VAD",
                        device, dtype)
+
+
+def convert_llm(tree: dict, dims: LLMDims,
+                device: str | torch.device = "cpu",
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """An LLM tree (``init_llm`` layout, as numpy) → tensors of ``dtype``;
+    bf16 by default, the storage the JAX generator keeps
+    (``engine.bf16_storage``: f16 asset leaves reach it through f32)."""
+    return _float_tree(tree, llm_spec(dims), "llm", device, dtype)
+
+
+def load_llm_small(device: str | torch.device = "cpu",
+                   dtype: torch.dtype = torch.bfloat16) -> dict | None:
+    """The committed trained generator (``llm_small.npz``, "eval-small"
+    shapes), read in place; None when the asset is missing."""
+    tree = load_npz_asset(ASSETS_DIR / "llm_small.npz")
+    if tree is None:
+        return None
+    return convert_llm(tree, LLM_PRESETS["eval-small"], device, dtype)
 
 
 def _quant_leaf(prefix: str, leaf: Any, din: int,

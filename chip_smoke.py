@@ -14,7 +14,8 @@ subset):
               and a census of some SASS instructions in the flash, the
               two cross-attention and the self-attention libraries;
 2. kernels  — holds each kernel against its plain PyTorch version on the
-              card at small ragged shapes and at the Whisper large-v3
+              card at small ragged shapes, at llama-3.2-3b's decode
+              linears (1 and 16 rows) and at the Whisper large-v3
               shapes (beam search's too: cross-attention with 5 and 8
               queries per row, the weight matmuls at 80 rows, the cache
               reorder bit for bit at (32, 80, 20, 228, 64) and at the
@@ -102,12 +103,27 @@ subset):
               first 8 queries against ``score_pairs_multi`` in f32
               (within 1e-4 relative) and in bf16 (within 8 ulps); (c) it
               fails if any kernel launched.
+11. answer  — LLM generation: (a) the trained eval-small generator
+              (``llm_small.npz``) on four RAG prompts over the query spine,
+              greedy, in the int8 and the int8 + int4-head profiles: the
+              kernels' tokens must equal the plain path's
+              (``plain_kernels``) and every answer must end in EOS within
+              64 tokens; (b) llama-3.2-3b (seeded) in the shipped profile
+              (decoder_int8, temperature 0.7): ``AudioRAG.query(
+              generate_answer=True)`` on the query spine, a scheduler wave
+              of 16 concurrent prompts and a single stream (tokens/s, ms a
+              decode step, prefill ms), the first decode step's logits
+              within 5 % of the plain path's, a traced window of decode
+              steps at 16 rows, and the wave again with the int4 head;
+              each run must launch ``matmul_q8w`` 113 times a decode step
+              (112 and one ``matmul_q4w`` with the int4 head) and nothing
+              else.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
 the script fails without it, so the word-time DTW of every ingest runs in
 C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
-``query`` after ``fallback``.
+``query`` after ``fallback``, ``answer`` after ``query``.
 The spine, the diarized ingest and the large-v3 paths other than
 ``fallback`` run with the fallback ladder off and, at large-v3, in
 English, as ``bench.py`` measures. The spine ingests with
@@ -193,6 +209,16 @@ LARGE_V3_Q8W = [  # (din, dout, calls per decode step)
 # the same matrices at int4, with the q4_group of their din
 LARGE_V3_Q4W = [(din, dout, calls, 128 if din == 5120 else 80)
                 for din, dout, calls in LARGE_V3_Q8W]
+
+LLM = "llama-3.2-3b"
+LLAMA_3B_Q8W = [  # (din, dout, calls per decode step) under decoder_int8
+    (3072, 5120, 28),    # fused q/k/v (24 + 2·8 heads of 128)
+    (3072, 3072, 28),    # attention output
+    (3072, 16384, 28),   # fused gate/up
+    (8192, 3072, 28),    # down
+    (3072, 128256, 1),   # logits head (int4 under lm_head_int4, group 128)
+]
+LLM_ROWS = (1, 16)  # a single stream, the scheduler's full wave
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "SETMAXREG", "MUFU.EX2",
@@ -723,6 +749,18 @@ def phase_kernels(torch, K) -> dict:
         *[("matmul_q4w@16", (lambda din, dout, grp: lambda t: _q4w_case(
             torch, K, 16, din, dout, grp, bf16, flush, t))(din, dout, grp),
             True) for din, dout, _, grp in LARGE_V3_Q4W],
+        # llama-3.2-3b's decode step (the answer phase): every int8
+        # linear at one row and at a wave of 16, and the int4 head
+        *[(f"matmul_q8w@llm{B}", (lambda B, din, dout: lambda t: _q8w_case(
+            torch, K, B, din, dout, bf16, flush, t))(B, din, dout), True)
+          for B in LLM_ROWS for din, dout, _ in LLAMA_3B_Q8W],
+        *[(f"matmul_q4w@llm{B}", (lambda B: lambda t: _q4w_case(
+            torch, K, B, 3072, 128256, 128, bf16, flush, t))(B), True)
+          for B in LLM_ROWS],
+        # decoder_int4's 3b block shapes (not on the answer path)
+        *[("matmul_q4w", (lambda din, dout: lambda t: _q4w_case(
+            torch, K, 16, din, dout, 128, bf16, flush, t))(din, dout),
+            False) for din, dout, _ in LLAMA_3B_Q8W[:4]],
         ("decode_self_attention_q8", lambda t: _self8_case(
             torch, K, 2, 4, 1, 32, 128, 37, f32, flush, t), False),
         ("decode_self_attention_q8", lambda t: _self8_case(
@@ -818,6 +856,20 @@ def phase_kernels(torch, K) -> dict:
         out["bound_by"] = by.pop() if len(by) == 1 else "bytes"
         return out
 
+    llm_calls = [c for _, _, c in LLAMA_3B_Q8W]
+    llm = {B: {"q8": agg(large[f"matmul_q8w@llm{B}"], llm_calls),
+               "q8_blocks": agg(large[f"matmul_q8w@llm{B}"][:4],
+                                llm_calls[:4]),
+               "q4_head": agg(large[f"matmul_q4w@llm{B}"], [1])}
+           for B in LLM_ROWS}
+    for B in LLM_ROWS:
+        print(f"decode-step sums {LLM} B={B}", json.dumps({
+            "matmul_q8w, the 113 calls a token under decoder_int8":
+                llm[B]["q8"],
+            "matmul_q8w, the 112 block calls (lm_head_int4)":
+                llm[B]["q8_blocks"],
+            "matmul_q4w, the int4 head (lm_head_int4, group 128)":
+                llm[B]["q4_head"]}), flush=True)
     print("decode-step sums", json.dumps({
         "matmul_q8w at B=32, the benchmark profile's 256 int8 block calls":
             agg(large["matmul_q8w@32"], [c for _, _, c in LARGE_V3_Q8W[:3]]),
@@ -870,7 +922,11 @@ def phase_kernels(torch, K) -> dict:
                        "the same shape in a (B, H, T, D) tensor"},
         Q8W: {**agg(large[Q8W], [c for _, _, c in LARGE_V3_Q8W]),
               "per": "decode step: 257 calls at B=16 (192×1280², "
-                     "32×1280→5120, 32×5120→1280, 1×1280→51968)"},
+                     "32×1280→5120, 32×5120→1280, 1×1280→51968)",
+              "llm": {f"B={B}": llm[B]["q8"] for B in LLM_ROWS} | {
+                  "per": f"{LLM} decode step under decoder_int8: 113 "
+                         "calls (28 × (3072→5120, 3072→3072, 3072→16384, "
+                         "8192→3072) + 3072→128256)"}},
         CROSS8: {**agg(large[CROSS8], [1]),
                  "per": "call at (16, 20, 1, 64), Ta=1500 "
                         "(one layer, one step)"},
@@ -879,7 +935,10 @@ def phase_kernels(torch, K) -> dict:
                         "(one layer, one step, window batch 32)"},
         Q4W: {**agg(large[Q4W], [1]),
               "per": "call at B=32, 1280→51968, group 80 (the benchmark "
-                     "profile's logits head, once per step)"},
+                     "profile's logits head, once per step)",
+              "llm": {f"B={B}": llm[B]["q4_head"] for B in LLM_ROWS} | {
+                  "per": f"call at 3072→128256, group 128 ({LLM}'s head "
+                         "under lm_head_int4, once per step)"}},
         SELF8: {**agg(large[SELF8], [1]),
                 "per": "call at (16, 20, 1, 64), Cp=256 (one layer, one "
                        "step of the capacity profile)"},
@@ -1519,6 +1578,11 @@ def same_ranking(got: list, ref: list) -> bool:
     return all(a >= b - score_tol(a) for a, b in zip(ranked, ranked[1:]))
 
 
+SPINE_WORDS = ("model data signal window audio chunk query vector fusion rank "
+               "weight step update noise speech meeting lecture gradient "
+               "spectrogram attention").split()
+
+
 def spine_corpus():
     """The spine's three turns and 21 distractor chunks (seed 11), with a
     "kind" to filter on."""
@@ -1527,10 +1591,7 @@ def spine_corpus():
     from audio_rag_tpu_torch.core.types import AudioChunk
 
     rng = np.random.default_rng(11)
-    words = ("model data signal window audio chunk query vector fusion "
-             "rank weight step update noise speech meeting lecture "
-             "gradient spectrogram attention").split()
-    texts = list(SPINE_TURNS) + [" ".join(rng.choice(words, 8).tolist())
+    texts = list(SPINE_TURNS) + [" ".join(rng.choice(SPINE_WORDS, 8).tolist())
                                  for _ in range(21)]
     return [AudioChunk(t, 6.0 * i, 6.0 * i + 5.0,
                        speaker=f"SPEAKER_{i % 2:02d}", chunk_id=f"s{i}",
@@ -1808,6 +1869,336 @@ def phase_query(torch, K) -> dict:
         fail(f"query: kernels launched on the query half: {launches}")
     del rag, qstore, fstore
     return {"query": launches}
+
+
+# -- phase 11: answers --------------------------------------------------------------
+
+ANSWER_QUESTIONS = ["gradient descent loss", "spectrogram harmonic",
+                    "what do attention layers mix",
+                    "what does the lecture say about the loss function"]
+ANSWER_TOKENS = 64  # new tokens a wave (seeded weights seldom emit EOS)
+ANSWER_WAVE = 16  # the scheduler's full wave (scheduler_max_batch)
+SERVED_WORDS = 256  # a served chunk: the chunker's max_tokens
+SERVED_EXCERPTS = 5  # a served prompt's excerpts: retrieval's top_k
+SERVED_BUCKET = 2048  # the prompt bucket of such a prompt
+ANSWER_LEFT_MAX = 128 << 20  # bytes the phase may leave allocated
+
+
+def served_corpus():
+    """The query spine's chunks, each grown to the chunker's 256 tokens
+    with words of the spine's vocabulary (seed 12), so that a prompt of
+    five of them fills the prompt bucket the shipped config serves."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    return [dataclasses.replace(c, text=" ".join(
+        [c.text, *rng.choice(SPINE_WORDS, SERVED_WORDS
+                             - len(c.text.split())).tolist()]))
+        for c in spine_corpus()]
+
+
+def answer_prompts(n: int, served: bool = False) -> list[str]:
+    """``n`` RAG prompts over the query spine's corpus: a question and
+    three of its short excerpts each, the spoken turns first; ``served``:
+    five excerpts of 256 tokens, as the shipped config sends them."""
+    from audio_rag_tpu_torch.core.types import RetrievalResult
+    from audio_rag_tpu_torch.generation.prompts import build_rag_prompt
+
+    chunks = served_corpus() if served else spine_corpus()
+    k = SERVED_EXCERPTS if served else 3
+    out = []
+    for i in range(n):
+        picked = [chunks[(i + 5 * j) % len(chunks)] for j in range(k)]
+        out.append(build_rag_prompt(
+            ANSWER_QUESTIONS[i % len(ANSWER_QUESTIONS)],
+            [RetrievalResult(c.text, 0.8, c.start, c.end, speaker=c.speaker)
+             for c in picked]))
+    return out
+
+
+def llm_config(**fields):
+    """The shipped profile's generator settings (configs/production.yaml:
+    llama-3.2-3b, decoder_int8, speculative_k 8 — single-row greedy waves
+    only, so never at the config's temperature 0.7), with
+    ``ANSWER_TOKENS``."""
+    from audio_rag_tpu_torch.config import GenerationConfig
+
+    return GenerationConfig(**{"model": LLM, "decoder_int8": True,
+                               "speculative_k": 8,
+                               "max_tokens": ANSWER_TOKENS, **fields})
+
+
+def run_trained_answers(K, switches: dict) -> dict:
+    """(a) The trained eval-small generator on the card, greedy: four RAG
+    prompts with the kernels, then under ``plain_kernels``. Returns the
+    token ids, counts, steps and the kernels run's launches."""
+    from audio_rag_tpu_torch.config import GenerationConfig
+    from audio_rag_tpu_torch.generation.llm import LLMGenerator
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+
+    gen = LLMGenerator(GenerationConfig(
+        model="eval-small", temperature=0.0, max_tokens=ANSWER_TOKENS,
+        use_scheduler=False, **switches), device="cuda")
+    gen.load()
+    prompts = answer_prompts(4)
+    K.reset_launches()
+    texts = gen.generate_batch(prompts, system=SYSTEM_PROMPT)
+    out = {"texts": texts, "ids": gen.last_token_ids,
+           "counts": gen.last_token_counts, "steps": gen.last_stats["steps"],
+           "launches": launch_counts(K)}
+    with plain_kernels(K):
+        gen.generate_batch(prompts, system=SYSTEM_PROMPT)
+    out["plain_ids"] = gen.last_token_ids
+    return out
+
+
+def wave_stats(inner, wall_s: float) -> dict:
+    st = inner.last_stats
+    rows = len(inner.last_token_counts)
+    return {"rows": rows, "prompt_bucket": st["prompt_bucket"],
+            "steps": st["steps"], "prefill_ms": st["prefill_s"] * 1e3,
+            "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["steps"], 1),
+            "decode_tokens_per_s": rows * st["steps"] / st["decode_s"],
+            "tokens_per_s": sum(inner.last_token_counts) / wall_s,
+            "wall_ms": wall_s * 1e3}
+
+
+def check_llm_launches(tag: str, launches: dict, steps: int,
+                       head_bits: int, n_layers: int = 28) -> None:
+    """The decode loop's linears run on the kernels: four int8 block calls
+    a layer and step (112 at 3b) and the head's, int8 or int4; the prefill
+    runs none."""
+    want = {Q8W: 4 * n_layers * steps + (steps if head_bits == 8 else 0),
+            Q4W: steps if head_bits == 4 else 0}
+    got = {name: launches.get(name, 0) for name in want}
+    if got != want or any(n for name, n in launches.items()
+                          if name not in want and name != WGMMA):
+        fail(f"{tag}: launches {launches}, expected {want} for {steps} "
+             "decode steps")
+
+
+def first_step_logits(torch, inner, prompts) -> object:
+    """Prefill ``prompts`` as the generator batches them, then one decode
+    step with its quantized weights: the step's f32 logits."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.models.llm import llm_decode_step, llm_forward
+
+    seqs = [inner._tok.encode(p) for p in prompts]
+    P = 1 << (max(map(len, seqs)) - 1).bit_length()
+    B, dims = len(seqs), inner.dims
+    toks = np.full((B, P), inner._tok.eos_id, np.int64)
+    mask = np.zeros((B, P), bool)
+    for i, s in enumerate(seqs):
+        toks[i, P - len(s):], mask[i, P - len(s):] = s, True
+    toks, mask = torch.from_numpy(toks).cuda(), torch.from_numpy(mask).cuda()
+    C, hd = P + 1, dims.d_model // dims.n_heads
+    cache = [torch.zeros((dims.n_layers, B, dims.n_kv_heads, C, hd),
+                         dtype=inner.dtype, device="cuda") for _ in range(2)]
+    valid = torch.cat([mask, torch.ones((B, 1), dtype=torch.bool,
+                                        device="cuda")], 1)
+    pos = torch.clamp(torch.cumsum(mask.long(), 1) - 1, min=0)
+    logits, _ = llm_forward(inner._params, dims, toks, 0, tuple(cache),
+                            inner.dtype, kv_valid=valid, pos_ids=pos,
+                            last_pos=torch.full((B,), P - 1, device="cuda"))
+    tok = logits[:, -1].argmax(-1)
+    step, *_ = llm_decode_step(
+        inner._params, dims, tok, P, *cache, kv_valid=valid,
+        dtype=inner.dtype, rope_pos=mask.long().sum(1),
+        q8=inner._params_q8)
+    return step
+
+
+def profile_llm_step(torch, inner, B: int, steps: int = 8) -> dict:
+    """A traced window of wave decode steps at ``B`` rows after a prompt
+    of the served bucket (:func:`trace_steps`)."""
+    from audio_rag_tpu_torch.models.llm import llm_decode_step
+
+    dims = inner.dims
+    P = SERVED_BUCKET
+    C, hd = P + 2 * steps + 4, dims.d_model // dims.n_heads
+    cache = [torch.zeros((dims.n_layers, B, dims.n_kv_heads, C, hd),
+                         dtype=inner.dtype, device="cuda") for _ in range(2)]
+    tok = torch.full((B,), 7, dtype=torch.long, device="cuda")
+    pos = P
+
+    def step():
+        nonlocal pos
+        llm_decode_step(inner._params, dims, tok, pos, *cache,
+                        dtype=inner.dtype, q8=inner._params_q8)
+        pos += 1
+
+    return trace_steps(torch, step, steps)
+
+
+def phase_answer(torch, K) -> dict:
+    """(a) The trained eval-small generator on the card, with the kernels
+    and under ``plain_kernels``, int8 and int8 + int4 head: the same
+    greedy tokens, every answer ending in EOS. (b) llama-3.2-3b, seeded,
+    in the shipped profile (decoder_int8, temperature 0.7), on prompts of
+    the served length (five 256-token excerpts, the 2048-token bucket)
+    and 64 of the served 1024 new tokens:
+    ``AudioRAG.query(generate_answer=True)`` on the query spine's chunks
+    grown to 256 tokens; a wave of 16 concurrent prompts through the
+    scheduler and a single stream (tokens/s, ms a decode step); the
+    first step's logits against the plain path; a traced window of
+    decode steps at 16 rows; the same wave with an int4 head. Every
+    run's launches are checked against its decode steps and its prompt
+    bucket against the served one. ``AudioRAG.unload_all`` then has to
+    give the card's memory back. Returns launches by path."""
+    from audio_rag_tpu_torch.config import (
+        AudioRAGConfig, EmbeddingConfig, RerankingConfig, RetrievalConfig)
+    from audio_rag_tpu_torch.engine.scheduler import ScheduledGenerator
+    from audio_rag_tpu_torch.generation.llm import LLMGenerator
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+
+    free_card(torch)
+    base = torch.cuda.memory_allocated()
+    by_path = {}
+    # (a)
+    for tag, switches, head_bits in (
+            ("int8", {"decoder_int8": True}, 8),
+            ("int8+lm4", {"decoder_int8": True, "lm_head_int4": True}, 4)):
+        out = run_trained_answers(K, switches)
+        path = f"answer[eval-small,{tag}]"
+        print(f"{path} answers {json.dumps(out['texts'])} tokens "
+              f"{out['counts']} launches {json.dumps(out['launches'])}",
+              flush=True)
+        if out["ids"] != out["plain_ids"]:
+            fail(f"{path}: the kernels' greedy tokens differ from the plain "
+                 f"path's: {out['ids']} against {out['plain_ids']}")
+        if any(n >= ANSWER_TOKENS for n in out["counts"]):
+            fail(f"{path}: an answer did not end in EOS within "
+                 f"{ANSWER_TOKENS} tokens: {out['counts']}")
+        check_llm_launches(path, out["launches"], out["steps"], head_bits,
+                           n_layers=4)
+        by_path[path] = out["launches"]
+    free_card(torch)
+
+    # (b) full width
+    rag = AudioRAG(AudioRAGConfig(
+        embedding=EmbeddingConfig(model="eval-small"),
+        retrieval=RetrievalConfig(capacity_step=128),
+        reranking=RerankingConfig(model="eval-small"),
+        generation=llm_config(), device="cuda"))
+    chunks = served_corpus()
+    rag.store.add(chunks, rag.embedder.embed([c.text for c in chunks]),
+                  "answer")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = rag.generator
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not isinstance(gen, ScheduledGenerator):
+        fail(f"answer: the default generator is {type(gen).__name__}, "
+             "not the wave scheduler")
+    inner = gen.inner
+    print(f"answer[{LLM}] {inner.dims} seeded and quantized (int8) in "
+          f"{load_s:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "on the card", flush=True)
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = rag.query(SPINE_QUERIES[0][0], collection="answer",
+                    generate_answer=True)
+    query_s = time.perf_counter() - t0
+    launches = launch_counts(K)
+    steps = inner.last_stats["steps"]
+    print(f"answer[{LLM},query] top {[r.chunk_id for r in res.results]} "
+          f"answer {res.answer[:80]!r}... tokens "
+          f"{inner.last_token_counts} stage ms "
+          f"{json.dumps({k: v * 1e3 for k, v in res.stage_timings.items()})}"
+          f" query ms {query_s * 1e3:.1f} launches {json.dumps(launches)}",
+          flush=True)
+    if res.answer is None or not inner.last_token_counts[0]:
+        fail(f"answer[{LLM},query]: no answer")
+    if inner.last_stats["prompt_bucket"] != SERVED_BUCKET:
+        fail(f"answer[{LLM},query]: prompt bucket "
+             f"{inner.last_stats['prompt_bucket']}, not the served "
+             f"{SERVED_BUCKET}")
+    check_llm_launches(f"answer[{LLM},query]", launches, steps, 8,
+                       inner.dims.n_layers)
+    by_path[f"answer[{LLM},query]"] = launches
+
+    prompts = answer_prompts(ANSWER_WAVE, served=True)
+    waves = {}
+    for tag, batch in (("wave16", prompts), ("single", prompts[:1])):
+        before = gen.scheduler.batches_run
+        K.reset_launches()
+        t0 = time.perf_counter()
+        futures = [gen.scheduler.submit(p, system=SYSTEM_PROMPT)
+                   for p in batch]
+        answers = [f.result() for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(K)
+        waves[tag] = wave_stats(inner, wall)
+        print(f"answer[{LLM},{tag}] {json.dumps(waves[tag])} waves "
+              f"{gen.scheduler.batches_run - before} answers "
+              f"{len(answers)} launches {json.dumps(launches)}", flush=True)
+        if gen.scheduler.batches_run - before != 1:
+            fail(f"answer[{LLM},{tag}]: {len(batch)} concurrent requests "
+                 "were not one wave")
+        if waves[tag]["prompt_bucket"] != SERVED_BUCKET:
+            fail(f"answer[{LLM},{tag}]: prompt bucket "
+                 f"{waves[tag]['prompt_bucket']}, not {SERVED_BUCKET}")
+        check_llm_launches(f"answer[{LLM},{tag}]", launches,
+                           inner.last_stats["steps"], 8, inner.dims.n_layers)
+        by_path[f"answer[{LLM},{tag}]"] = launches
+
+    # the first decode step against the plain path (the checks' launches
+    # are not the path's)
+    got = first_step_logits(torch, inner, prompts[:4])
+    with plain_kernels(K):
+        ref = first_step_logits(torch, inner, prompts[:4])
+    check_logits(f"answer[{LLM}]", [got], [ref])
+    del got, ref
+    traced = profile_llm_step(torch, inner, ANSWER_WAVE)
+    print(f"answer[{LLM}] traced decode steps at B={ANSWER_WAVE} "
+          f"{json.dumps(traced)}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    thread = gen.scheduler._thread
+    rag.unload_all()  # stops the scheduler, drops the weights
+    if thread.is_alive():
+        fail(f"answer[{LLM}]: the scheduler's thread outlived unload_all")
+    del rag, gen, inner
+    free_card(torch)
+
+    # the same wave with the int4 head
+    gen4 = LLMGenerator(llm_config(lm_head_int4=True), device="cuda")
+    gen4.load()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    gen4.generate_batch(prompts, system=SYSTEM_PROMPT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(K)
+    waves["wave16,lm4"] = wave_stats(gen4, wall)
+    print(f"answer[{LLM},wave16,lm4] {json.dumps(waves['wave16,lm4'])} "
+          f"launches {json.dumps(launches)}", flush=True)
+    check_llm_launches(f"answer[{LLM},wave16,lm4]", launches,
+                       gen4.last_stats["steps"], 4, gen4.dims.n_layers)
+    if gen4.last_stats["prompt_bucket"] != SERVED_BUCKET:
+        fail(f"answer[{LLM},wave16,lm4]: prompt bucket "
+             f"{gen4.last_stats['prompt_bucket']}, not {SERVED_BUCKET}")
+    by_path[f"answer[{LLM},wave16,lm4]"] = launches
+    gen4.unload()
+    del gen4
+    free_card(torch)
+    left = torch.cuda.memory_allocated()
+    print(f"answer[{LLM}] summary", json.dumps(
+        {"card": card_line(), "peak_gb": peak, "allocated_before_gb":
+         base / 1e9, "allocated_after_gb": left / 1e9, **waves}),
+        flush=True)
+    # what may stay: the rope tables (4 MB at 3b) and the cuBLAS workspace
+    # of the scheduler's thread
+    if left - base > ANSWER_LEFT_MAX:
+        fail(f"answer: {(left - base) / 1e9:.3f} GB stay on the card after "
+             f"unload_all (at most {ANSWER_LEFT_MAX / 1e9:.3f})")
+    return by_path
 
 
 def large_v3_config(device: str, profile: str, window_batch: int,
@@ -2290,10 +2681,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
-                            "full,full_kv4,capacity,beam",
+                            "answer,full,full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
-                         "diarize,fallback,query,full,full_kv4,capacity,"
-                         "beam")
+                         "diarize,fallback,query,answer,full,full_kv4,"
+                         "capacity,beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2350,6 +2741,9 @@ def main() -> None:
     if "query" in phases:
         by_path.update(phase_query(torch, K))
         free_card(torch)
+    if "answer" in phases:
+        by_path.update(phase_answer(torch, K))
+        free_card(torch)
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)
         free_card(torch)  # two large-v3 copies need not coexist
@@ -2382,6 +2776,7 @@ def main() -> None:
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
             **({"contiguous": m.get("contiguous")} if name == FLASH else {}),
+            **({"llm": m["llm"]} if "llm" in m else {}),
             "per": m.get("per"),
         })
     print(json.dumps({"kernels": rows}))

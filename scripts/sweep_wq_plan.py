@@ -2,14 +2,17 @@
 """Time ``matmul_q8w`` / ``matmul_q4w`` launch plans on the card.
 
 For each weight matmul of a Whisper large-v3 decode step (and its logits
-head) at 16, 32 and 80 x rows, runs the plan ``wq_plan`` picks and a set of
+head) at 16, 32 and 80 x rows (``--model llama-3.2-3b``: of a llama-3.2-3b
+decode step under ``decoder_int8``, and its int4 head, at 1 and 16 rows),
+runs the plan ``wq_plan`` picks and a set of
 other plans (warp grids, din splits, ring depths) through
 ``kernels.wq_launch``, checks each result against the plain version, and
 prints one JSON line per plan with its device ms (cold L2, as in
 ``chip_smoke.time_ms``), then the best plan per shape beside the chosen one.
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/sweep_wq_plan.py [--iters 20] [--out FILE]
+    python3 scripts/sweep_wq_plan.py [--model large-v3|llama-3.2-3b]
+        [--iters 20] [--out FILE]
 """
 
 from __future__ import annotations
@@ -30,6 +33,13 @@ SHAPES = [  # (bits, B, din, dout, group)
     *[(4, B, din, dout, 128 if din == 5120 else 80) for B in (16, 32, 80)
       for din, dout in ((1280, 1280), (1280, 5120), (5120, 1280),
                         (1280, 51968))],
+]
+
+LLM_SHAPES = [
+    *[(8, B, din, dout, None) for B in (1, 16)
+      for din, dout in ((3072, 5120), (3072, 3072), (3072, 16384),
+                        (8192, 3072), (3072, 128256))],
+    *[(4, B, 3072, 128256, 128) for B in (1, 16)],
 ]
 
 
@@ -61,6 +71,8 @@ def candidates(K, bits, B, din, dout, group):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="large-v3",
+                    choices=("large-v3", "llama-3.2-3b"))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON lines to this file")
@@ -77,7 +89,8 @@ def main() -> None:
     K.build(["matmul_q8w", "matmul_q4w"])
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     lines, best = [], {}
-    for bits, B, din, dout, group in SHAPES:
+    shapes = SHAPES if args.model == "large-v3" else LLM_SHAPES
+    for bits, B, din, dout, group in shapes:
         g = torch.Generator(device="cuda").manual_seed(0)
         x = torch.randn((B, din), generator=g, device="cuda").bfloat16()
         if bits == 8:

@@ -361,11 +361,13 @@ SCHEMA_PAIRS = [
     (tconfig.EmbeddingConfig, schema.EmbeddingConfig),
     (tconfig.RetrievalConfig, schema.RetrievalConfig),
     (tconfig.RerankingConfig, schema.RerankingConfig),
+    (tconfig.GenerationConfig, schema.GenerationConfig),
+    (tconfig.ExpansionConfig, schema.ExpansionConfig),
 ]
 
 #: fields of the port's config that the schema does not have, by design
 PORT_ONLY = {"ASRConfig": {"seed"}, "EmbeddingConfig": {"seed"},
-             "RerankingConfig": {"seed"}}
+             "RerankingConfig": {"seed"}, "GenerationConfig": {"seed"}}
 
 
 @pytest.mark.parametrize("port,ref", SCHEMA_PAIRS,

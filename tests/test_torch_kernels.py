@@ -536,6 +536,12 @@ def test_self_kernel_byte_conversions_are_exact():
 _LARGE_V3 = [(1280, 1280, 80), (1280, 5120, 80), (5120, 1280, 128),
              (1280, 51968, 80)]                     # (din, dout, q4 group)
 _TINY_SYNTH = [(128, 128, 128), (128, 512, 128), (512, 128, 64)]
+# the LLM's decode step under decoder_int8 / int4: fused q/k/v, output,
+# fused gate/up, down, head (llama-3.2-3b; the trained eval-small asset)
+_LLAMA_3B = [(3072, 5120, 128), (3072, 3072, 128), (3072, 16384, 128),
+             (8192, 3072, 128), (3072, 128256, 128)]
+_LLM_SMALL = [(256, 512, 32), (256, 256, 32), (256, 2048, 32),
+              (1024, 256, 128)]
 _CARD_TESTS = [(128, 512, 128), (200, 72, 40), (300, 260, 3),
                (1300, 77, 100), (256, 512, 128), (300, 512, 3)]
 _PLAN_CASES = (
@@ -544,7 +550,11 @@ _PLAN_CASES = (
     + [(B, din, dout, bits, grp) for B in (1, 5, 16, 40)
        for din, dout, grp in _TINY_SYNTH for bits in (8, 4)]
     + [(B, din, dout, bits, grp) for B in (1, 3, 8, 37, 80, 129)
-       for din, dout, grp in _CARD_TESTS for bits in (8, 4)])
+       for din, dout, grp in _CARD_TESTS for bits in (8, 4)]
+    + [(B, din, dout, bits, grp) for B in (1, 16)
+       for din, dout, grp in _LLAMA_3B for bits in (8, 4)]
+    + [(B, din, dout, bits, grp) for B in (1, 4, 8)
+       for din, dout, grp in _LLM_SMALL for bits in (8, 4)])
 
 
 @pytest.mark.parametrize("B,din,dout,bits,group", _PLAN_CASES)
