@@ -1,7 +1,7 @@
 """The port's own configuration: plain dataclasses holding the ASR,
 diarization, alignment, embedding, retrieval, reranking, chunking,
-generation and query-expansion fields the ported slice uses, plus the
-device.
+contextual-header, generation and query-expansion fields the ported slice
+uses, plus the device.
 
 Every field a dataclass shares with ``audio_rag_tpu/config/schema.py`` has
 the schema's name, default and bounds: ``AudioRAG()`` runs Whisper
@@ -22,9 +22,9 @@ the reranker's, the generator's and the expansion's, no
 ``checkpoint_path`` but the diarizer's, the reranker's and the
 generator's (no converted checkpoint is read: setting one raises), no
 ``mel_sharded`` (one device: each window's mel is clamped alone), no
-``timeout`` and none of the continuous batcher's or PRF's settings (those
-features are not ported); it adds the weight ``seed`` of the presets
-without an asset and ``AudioRAGConfig.device``.
+``timeout`` and none of PRF's settings (PRF is not ported); it adds the
+weight ``seed`` of the presets without an asset and
+``AudioRAGConfig.device``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ __all__ = [
     "DiarizationConfig",
     "AlignmentConfig",
     "ChunkingConfig",
+    "ContextualConfig",
     "EmbeddingConfig",
     "RetrievalConfig",
     "RerankingConfig",
@@ -189,6 +190,26 @@ class ChunkingConfig:
 
 
 @dataclass
+class ContextualConfig:
+    #: prepend ``[Context: ...]`` headers to chunks before embedding
+    enabled: bool = False
+    #: neighbouring chunks on each side a header reads
+    window_size: int = 1
+    #: "llm" (the generator writes each header) or "extractive" (salient
+    #: terms of the neighbours, no model)
+    backend: str = "llm"
+    #: terms per extractive header
+    extractive_terms: int = 4
+
+    def __post_init__(self):
+        if self.backend not in ("llm", "extractive"):
+            raise ConfigError(f"contextual backend must be 'llm' or "
+                              f"'extractive', got {self.backend!r}")
+        _check_bounds(self, (("window_size", 0, 3),
+                             ("extractive_terms", 1, 16)))
+
+
+@dataclass
 class EmbeddingConfig:
     #: "eval-small" loads the committed trained asset; "test" and other
     #: names, the default "BAAI/bge-m3" among them (XLM-R large shapes),
@@ -287,18 +308,27 @@ class GenerationConfig:
     decoder_int4: bool = False
     #: with ``decoder_int8``: int4 for the head only
     lm_head_int4: bool = False
-    #: speculative greedy decode of single-row waves (not ported: such a
-    #: request raises)
+    #: a greedy single-row wave decodes in verify blocks of this many
+    #: tokens against the n-gram drafter (the same tokens); 0 = off
     speculative_k: int = 0
     #: prompts keep their last this many tokens
     max_prompt_tokens: int = 2048
     #: coalesce concurrent requests into one wave (engine/scheduler.py)
     use_scheduler: bool = True
-    #: "wave" (each batch decoded to the end); "continuous" is not ported
-    #: (raises when the generator is built)
+    #: "wave" (each batch decoded to the end) or "continuous" (slots that
+    #: requests join and leave at segment boundaries, text streamed by
+    #: segment: engine/continuous.py)
     scheduler_mode: str = "wave"
     scheduler_max_batch: int = 16
     scheduler_max_wait_ms: float = 10.0
+    #: continuous mode: decode slots and decode steps a segment
+    scheduler_slots: int = 8
+    scheduler_segment_tokens: int = 16
+    #: continuous mode: steps a segment while nobody waits to join and
+    #: every slot has that much room (0 = off)
+    scheduler_idle_segment_tokens: int = 48
+    #: continuous mode: cache frames a slot holds
+    scheduler_context_tokens: int = 2048
     #: seed of the weights of presets without a committed asset
     seed: int = 0
 
@@ -313,7 +343,11 @@ class GenerationConfig:
             ("temperature", 0.0, 2.0), ("max_tokens", 1, 8192),
             ("speculative_k", 0, 8), ("max_prompt_tokens", 64, None),
             ("scheduler_max_batch", 1, None),
-            ("scheduler_max_wait_ms", 0.0, None)))
+            ("scheduler_max_wait_ms", 0.0, None),
+            ("scheduler_slots", 1, None),
+            ("scheduler_segment_tokens", 1, None),
+            ("scheduler_idle_segment_tokens", 0, None),
+            ("scheduler_context_tokens", 64, None)))
 
 
 @dataclass
@@ -337,6 +371,7 @@ class AudioRAGConfig:
     diarization: DiarizationConfig = field(default_factory=DiarizationConfig)
     alignment: AlignmentConfig = field(default_factory=AlignmentConfig)
     chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
+    contextual: ContextualConfig = field(default_factory=ContextualConfig)
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
     reranking: RerankingConfig = field(default_factory=RerankingConfig)

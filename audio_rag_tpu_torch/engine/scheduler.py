@@ -1,9 +1,12 @@
-"""Wave scheduler of the port (counterpart of
-``audio_rag_tpu/engine/scheduler.py`` in wave mode): concurrent
-generation requests that arrive within ``max_wait_ms`` of the first (up to
+"""Generation scheduling of the port (counterpart of
+``audio_rag_tpu/engine/scheduler.py``). Wave mode: concurrent generation
+requests that arrive within ``max_wait_ms`` of the first (up to
 ``max_batch``) and share their decode parameters run as one
-``generate_batch`` wave; each caller waits on a future. A failed wave
-sets its exception on every request's future, so each caller's
+``generate_batch`` wave; each caller waits on a future. Continuous mode:
+the requests go to the
+:class:`~audio_rag_tpu_torch.engine.continuous.ContinuousBatcher`, and
+``generate_stream`` yields text as each segment completes. A failure sets
+its exception on the futures of the requests it hit, so each caller's
 ``generate`` raises it."""
 
 from __future__ import annotations
@@ -111,14 +114,29 @@ class GenerationScheduler:
 
 
 class ScheduledGenerator:
-    """A generator's interface over a :class:`GenerationScheduler`, so that
-    answers and HyDE passages asked for at the same time share a wave."""
+    """A generator's interface over a :class:`GenerationScheduler` (mode
+    "wave") or a continuous batcher (mode "continuous"), so that answers,
+    HyDE passages and headers asked for at the same time share the
+    device."""
 
     def __init__(self, generator, max_batch: int = 16,
-                 max_wait_ms: float = 10.0):
+                 max_wait_ms: float = 10.0, mode: str = "wave",
+                 n_slots: int = 8, segment_tokens: int = 16,
+                 context_tokens: int = 2048,
+                 idle_segment_tokens: int = 0):
         self.inner = generator
-        self.scheduler = GenerationScheduler(generator, max_batch,
-                                             max_wait_ms)
+        if mode == "continuous":
+            from audio_rag_tpu_torch.engine.continuous import (
+                ContinuousBatcher,
+            )
+
+            self.scheduler = ContinuousBatcher(
+                generator, n_slots=n_slots, segment_tokens=segment_tokens,
+                context_tokens=context_tokens,
+                idle_segment_tokens=idle_segment_tokens)
+        else:
+            self.scheduler = GenerationScheduler(generator, max_batch,
+                                                 max_wait_ms)
 
     @property
     def is_loaded(self) -> bool:
@@ -146,4 +164,15 @@ class ScheduledGenerator:
         return [f.result() for f in futures]
 
     def generate_stream(self, prompt: str, **kw: Any) -> Iterator[str]:
-        return word_chunks(self.generate(prompt, **kw))
+        """The answer's text as the continuous batcher decodes it, segment
+        by segment (a failure raises once the deltas stop); under waves the
+        finished answer in groups of eight words."""
+        if isinstance(self.scheduler, GenerationScheduler):
+            yield from word_chunks(self.generate(prompt, **kw))
+            return
+        deltas: queue.Queue[str | None] = queue.Queue()
+        fut = self.scheduler.submit(prompt, on_delta=deltas.put, **kw)
+        fut.add_done_callback(lambda _: deltas.put(None))
+        while (d := deltas.get()) is not None:
+            yield d
+        fut.result()

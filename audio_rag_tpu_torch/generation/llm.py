@@ -12,14 +12,16 @@ filler rows copy row 0, one key ``PRNGKey(abs(hash(tuple(texts))) %
 2**31)`` per batch (Python's string hash is salted per process, so sampled
 answers repeat only within one process), and EOS trimming.
 ``decoder_int8``/``decoder_int4``/``lm_head_int4`` quantize the decode
-step's linears once at load (int4 beating int8). "eval-small" loads the
-committed trained asset and its tokenizer side file (and raises when the
-asset is missing); other presets start from weights seeded on the
-device.
+step's linears once at load (int4 beating int8). A greedy single-row wave
+under ``speculative_k`` runs the speculative program
+(:func:`~audio_rag_tpu_torch.models.llm.llm_speculative_generate`, the
+same tokens) and leaves its drafter's figures in ``last_spec_stats``, as
+the JAX generator does. "eval-small" loads the committed trained asset and
+its tokenizer side file (and raises when the asset is missing); other
+presets start from weights seeded on the device.
 
-Not ported, and raising ``ConfigError``: checkpoints and the speculative
-program the JAX generator runs for a greedy single-row wave under
-``speculative_k``. A failure raises; nothing falls back.
+Not ported, and raising ``ConfigError``: checkpoints. A failure raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from audio_rag_tpu_torch.models.llm import (
     LLMDims,
     init_llm,
     llm_generate,
+    llm_speculative_generate,
     quantize_llm_weights,
 )
 from audio_rag_tpu_torch.ops import random as jrandom
@@ -69,9 +72,12 @@ class LLMGenerator:
         #: generated ids per prompt of the last batch, EOS excluded
         self.last_token_counts: list[int] = []
         self.last_token_ids: list[list[int]] = []
-        #: the last wave's batch rows, prompt bucket, decode steps and
-        #: prefill / decode seconds
+        #: the last wave's batch rows, prompt bucket, decode steps (verify
+        #: iterations on the speculative path) and prefill / decode seconds
         self.last_stats: dict = {}
+        #: the last speculative wave's block verifies, tokens emitted,
+        #: tokens per verify and accept rate (None after any other wave)
+        self.last_spec_stats: dict | None = None
 
     @property
     def is_loaded(self) -> bool:
@@ -154,21 +160,25 @@ class LLMGenerator:
         if B_pad != B:
             batch = np.concatenate([batch, np.tile(batch[:1], (B_pad - B, 1))])
             mask = np.concatenate([mask, np.tile(mask[:1], (B_pad - B, 1))])
-        if temp <= 0.0 and self.config.speculative_k > 0 and B_pad == 1:
-            raise ConfigError(
-                "speculative generation (a greedy single-row wave under "
-                "speculative_k) is not ported (ROADMAP.md §1 item 7); set "
-                "speculative_k=0",
-                context={"speculative_k": self.config.speculative_k})
         stats: dict = {}
-        out = llm_generate(
-            self._params, self.dims,
-            torch.from_numpy(batch).to(self.device), max_new, pad_id,
-            temperature=float(temp),
-            rng=jrandom.PRNGKey(abs(hash(tuple(texts))) % (2 ** 31)),
-            dtype=self.dtype,
-            prompt_mask=torch.from_numpy(mask).to(self.device),
-            decoder_q8=self._params_q8, stats=stats)
+        prompt_t = torch.from_numpy(batch).to(self.device)
+        mask_t = torch.from_numpy(mask).to(self.device)
+        # speculation pays only where the weight read is not shared by
+        # other rows: greedy single-row waves
+        spec_k = self.config.speculative_k
+        spec = temp <= 0.0 and spec_k > 0 and B_pad == 1
+        if spec:
+            out, n_iter = llm_speculative_generate(
+                self._params, self.dims, prompt_t, max_new, pad_id,
+                spec_k=spec_k, dtype=self.dtype, prompt_mask=mask_t,
+                decoder_q8=self._params_q8, stats=stats)
+        else:
+            out = llm_generate(
+                self._params, self.dims, prompt_t, max_new, pad_id,
+                temperature=float(temp),
+                rng=jrandom.PRNGKey(abs(hash(tuple(texts))) % (2 ** 31)),
+                dtype=self.dtype, prompt_mask=mask_t,
+                decoder_q8=self._params_q8, stats=stats)
         out = out.cpu().numpy()
         results, counts, ids = [], [], []
         for i in range(B):
@@ -182,6 +192,15 @@ class LLMGenerator:
         self.last_token_counts = counts
         self.last_token_ids = ids
         self.last_stats = {"rows": B_pad, "prompt_bucket": P, **stats}
+        self.last_spec_stats = None
+        if spec:
+            n_iter = max(n_iter, 1)
+            tpv = max(counts[0] - 1, 0) / n_iter
+            self.last_spec_stats = {
+                "block_verifies": n_iter, "tokens_emitted": counts[0],
+                "tokens_per_verify": round(tpv, 3),
+                "accept_rate": round(max(tpv - 1.0, 0.0)
+                                     / max(spec_k - 1, 1), 4)}
         return results
 
     def generate_stream(self, prompt: str, system: str | None = None,

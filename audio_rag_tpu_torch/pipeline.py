@@ -1,13 +1,13 @@
 """``AudioRAG`` of the port: ingest audio into a collection, query it.
 
 Follows ``audio_rag_tpu/pipeline/ingestion.py::IngestionPipeline.ingest``
-and ``pipeline/query.py::QueryPipeline`` with contextual headers and TTS
-off:
+and ``pipeline/query.py::QueryPipeline`` with TTS off:
 
 * ingest: transcribe with DTW word times → (``diarize=True``, the default)
   diarize → attribute words to speakers → rebuild the transcript by
-  speaker turn → speaker-turn chunks → BGE-M3 dense + sparse embeddings →
-  the device-resident store;
+  speaker turn → speaker-turn chunks → (``contextual.enabled``)
+  ``[Context: ...]`` headers written by the generator or extractive →
+  BGE-M3 dense + sparse embeddings → the device-resident store;
 * query: without a metadata filter, the batched
   :class:`~audio_rag_tpu_torch.engine.query_engine.QueryEngine` (embed →
   dense / sparse / hybrid (RRF) search → top ``initial_k`` → cross-encoder
@@ -42,6 +42,7 @@ from audio_rag_tpu_torch.alignment.aligner import (
 from audio_rag_tpu_torch.asr.whisper import WhisperASR
 from audio_rag_tpu_torch.chunking.speaker_turn import SpeakerTurnChunker
 from audio_rag_tpu_torch.config import AudioRAGConfig
+from audio_rag_tpu_torch.contextual.processor import ContextualProcessor
 from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import RetrievalResult
 from audio_rag_tpu_torch.device import resolve_device
@@ -133,6 +134,7 @@ class AudioRAG:
         self._generator = None
         self._generator_built = False
         self._expander: HyDEExpander | None = None
+        self._contextual: ContextualProcessor | None = None
         self.chunker = SpeakerTurnChunker(self.config.chunking)
         self.store = VectorStore(self.config.retrieval, device=self.device)
 
@@ -194,6 +196,16 @@ class AudioRAG:
         return self._expander
 
     @property
+    def contextual(self) -> ContextualProcessor:
+        """The header writer, over the pipeline's generator when its
+        backend is "llm" (none is built for "extractive")."""
+        if self._contextual is None:
+            cfg = self.config.contextual
+            self._contextual = ContextualProcessor(
+                cfg, self.generator if cfg.backend == "llm" else None)
+        return self._contextual
+
+    @property
     def query_engine(self) -> QueryEngine:
         if self._engine is None:
             self._engine = QueryEngine(self.embedder, self.store)
@@ -209,12 +221,14 @@ class AudioRAG:
     def unload_all(self) -> None:
         """Release every model the pipeline loaded, as the JAX
         orchestrator's ``unload_all`` does: the generator's scheduler
-        stops and its weights go, and each stage is built anew on its next
-        use. The store stays."""
+        (the wave thread, or the continuous batcher's thread and its
+        cache) stops and its weights go, and each stage is built anew on
+        its next use. The store stays."""
         if self._generator is not None:
             self._generator.unload()
         self._asr = self._diarizer = self._embedder = self._engine = None
         self._reranker = self._generator = self._expander = None
+        self._contextual = None
         self._reranker_built = self._generator_built = False
 
     def _do_rerank(self, rerank: bool | None) -> bool:
@@ -225,7 +239,8 @@ class AudioRAG:
                collection: str | None = None, diarize: bool = True,
                sample_rate: int | None = None,
                metadata: dict[str, Any] | None = None) -> IngestionResult:
-        """transcribe → (diarize → align) → chunk → embed → store."""
+        """transcribe → (diarize → align) → chunk → (contextualize) →
+        embed → store."""
         t_start = time.perf_counter()
         timings: dict[str, float] = {}
         source = (str(audio) if not isinstance(audio, np.ndarray)
@@ -250,10 +265,14 @@ class AudioRAG:
             timings["align"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         chunks = self.chunker.chunk(segments)
+        timings["chunk"] = time.perf_counter() - t0
+        if self.config.contextual.enabled:
+            t0 = time.perf_counter()
+            chunks = self.contextual.process_chunks(chunks)
+            timings["contextualize"] = time.perf_counter() - t0
         meta = {"source": source, **(metadata or {})}
         for c in chunks:
             c.metadata.update(meta)
-        timings["chunk"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         embeddings = self.embedder.embed([c.text for c in chunks])
         timings["embed"] = time.perf_counter() - t0

@@ -1,7 +1,7 @@
 """Deterministic word-hash tokenizer and batch padding (copy of
 ``audio_rag_tpu/text/tokenizer.py::HashWordTokenizer``/``pad_batch``/
-``get_tokenizer``), the cross-encoder's pair layout included, and the
-generator's reverse-map side file.
+``get_tokenizer``/``norm_tokens``), the cross-encoder's pair layout
+included, and the generator's reverse-map side file.
 
 Equal words map to equal ids, stable across processes and across the two
 packages, so the port's sparse/lexical retrieval matches the JAX package's
@@ -19,9 +19,16 @@ from typing import Sequence
 import numpy as np
 
 __all__ = ["HashWordTokenizer", "get_tokenizer", "load_reverse_map",
-           "pad_batch"]
+           "norm_tokens", "pad_batch"]
 
 _WORD_RE = re.compile(r"[a-z0-9]+(?:'[a-z]+)?")
+_STRIP = ".,;:!?()[]\"'"
+
+
+def norm_tokens(text: str) -> list[str]:
+    """Lowercased whitespace tokens with edge punctuation stripped (the
+    extractive headers' terms)."""
+    return [w for w in (t.strip(_STRIP) for t in text.lower().split()) if w]
 
 
 class HashWordTokenizer:

@@ -117,7 +117,24 @@ subset):
               steps at 16 rows, and the wave again with the int4 head;
               each run must launch ``matmul_q8w`` 113 times a decode step
               (112 and one ``matmul_q4w`` with the int4 head) and nothing
-              else.
+              else. The serving engine: (a) on the trained generator, a
+              greedy single stream with ``speculative_k`` 8 (the wave's
+              and the plain path's tokens; verifies, tokens per verify,
+              17 ``matmul_q8w`` a verify), the continuous batcher (4
+              slots, segments of 8; a fifth request joins after the first
+              segment; each request's greedy tokens equal to its wave's,
+              the streamed text equal to the answer), and
+              ``AudioRAG.ingest`` with contextual headers (llm, then
+              extractive) on the card and the CPU (the same chunks, or a
+              printed near-tie); (b) at 3b, a greedy single stream with
+              ``speculative_k`` 8 and 0 in turns (decode tokens/s, tokens
+              per verify, the tokens equal up to a near-tie), the first
+              verify block's logits within 5 % of the step's, 16 requests
+              of 64 tokens and a late one of 8 as waves and through the
+              batcher at the shipped settings (8 slots, segments of 16,
+              idle segments of 48, 2,048 frames: tokens/s and the late
+              request's latency), then ``AudioRAG.unload_all`` stopping the
+              batcher.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
@@ -218,7 +235,8 @@ LLAMA_3B_Q8W = [  # (din, dout, calls per decode step) under decoder_int8
     (8192, 3072, 28),    # down
     (3072, 128256, 1),   # logits head (int4 under lm_head_int4, group 128)
 ]
-LLM_ROWS = (1, 16)  # a single stream, the scheduler's full wave
+#: a single stream, a verify block of 8 (or 8 slots), the full wave
+LLM_ROWS = (1, 8, 16)
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "SETMAXREG", "MUFU.EX2",
@@ -2033,6 +2051,515 @@ def profile_llm_step(torch, inner, B: int, steps: int = 8) -> dict:
     return trace_steps(torch, step, steps)
 
 
+SERVE_SLOTS, SERVE_SEGMENT = 4, 8  # (a)'s batcher
+SHORT_TOKENS = 8  # the request that joins a running batch
+TIE_ULPS = 2  # bf16 ulps of each logit within which two choices may swap
+
+
+def trained_generator(device: str = "cuda", **fields):
+    """The trained eval-small generator on ``device``, unscheduled,
+    greedy, int8 decode weights."""
+    from audio_rag_tpu_torch.config import GenerationConfig
+    from audio_rag_tpu_torch.generation.llm import LLMGenerator
+
+    gen = LLMGenerator(GenerationConfig(**{
+        "model": "eval-small", "temperature": 0.0, "decoder_int8": True,
+        "max_tokens": ANSWER_TOKENS, "use_scheduler": False, **fields}),
+        device=device)
+    gen.load()
+    return gen
+
+
+def run_trained_speculative(K, gen) -> dict:
+    """(a) Greedy single streams with ``speculative_k`` 8 on four RAG
+    prompts: the tokens of the wave (``speculative_k`` 0) and of the plain
+    path, the verify count, tokens per verify and ``matmul_q8w`` launches
+    per verify."""
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+
+    out = {"ids": [], "wave_ids": [], "plain_ids": [], "stats": [],
+           "q8_launches": [], "q8_per_verify": []}
+    for p in answer_prompts(4):
+        gen.config.speculative_k = 8
+        K.reset_launches()
+        gen.generate(p, system=SYSTEM_PROMPT)
+        st = gen.last_spec_stats
+        out["ids"].append(gen.last_token_ids[0])
+        out["stats"].append(st)
+        out["q8_launches"].append(K.LAUNCHES[Q8W])
+        out["q8_per_verify"].append(K.LAUNCHES[Q8W] / st["block_verifies"])
+        with plain_kernels(K):
+            gen.generate(p, system=SYSTEM_PROMPT)
+        out["plain_ids"].append(gen.last_token_ids[0])
+        gen.config.speculative_k = 0
+        gen.generate(p, system=SYSTEM_PROMPT)
+        out["wave_ids"].append(gen.last_token_ids[0])
+    return out
+
+
+def serve_continuous(batcher, prompts: list[str], late: str,
+                     late_tokens: int, **kw) -> dict:
+    """``prompts`` into ``batcher`` at once (their text streamed), then
+    ``late`` once the first segment has been read back: each request's
+    text and raw tokens, the streamed text, the late request's latency
+    and the wall time."""
+    tokens: dict[str, list[int]] = {}
+    orig = batcher._finish
+
+    def record(slot):
+        tokens[slot.request.prompt] = list(slot.tokens)
+        orig(slot)
+
+    batcher._finish = record
+    streamed = {p: [] for p in prompts}
+    seg0 = batcher.segments_run
+    t0 = time.perf_counter()
+    futures = [batcher.submit(p, on_delta=streamed[p].append, **kw)
+               for p in prompts]
+    while batcher.segments_run == seg0 and not all(f.done()
+                                                  for f in futures):
+        time.sleep(0.001)
+    t_late = time.perf_counter()
+    late_f = batcher.submit(late, max_tokens=late_tokens,
+                            **{k: v for k, v in kw.items()
+                               if k != "max_tokens"})
+    late_text = late_f.result()
+    late_ms = (time.perf_counter() - t_late) * 1e3
+    texts = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    del batcher._finish
+    return {"texts": texts, "late_text": late_text, "late_ms": late_ms,
+            "wall_s": wall, "tokens": tokens,
+            "streamed": ["".join(streamed[p]) for p in prompts]}
+
+
+def eos_trim(ids: list[int], eos: int, n: int) -> list[int]:
+    return (ids[:ids.index(eos)] if eos in ids else ids)[:n]
+
+
+def run_trained_batcher(K, gen) -> dict:
+    """(a) The continuous batcher (4 slots, segments of 8) on four RAG
+    prompts, a fifth joining after the first segment: each request's
+    greedy tokens against its single-row wave's, the streamed text against
+    the answer."""
+    from audio_rag_tpu_torch.engine.continuous import ContinuousBatcher
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+
+    prompts = answer_prompts(5)
+    b = ContinuousBatcher(gen, n_slots=SERVE_SLOTS,
+                          segment_tokens=SERVE_SEGMENT)
+    try:
+        K.reset_launches()
+        out = serve_continuous(b, prompts[:4], prompts[4], ANSWER_TOKENS,
+                               system=SYSTEM_PROMPT)
+        out["launches"] = launch_counts(K)
+        out["segments"] = b.segments_run
+    finally:
+        b.stop()
+    eos = gen._tok.eos_id
+    out["ids"] = [eos_trim(out["tokens"][p], eos, ANSWER_TOKENS)
+                  for p in prompts]
+    out["wave_ids"] = []
+    for p in prompts:
+        gen.generate(p, system=SYSTEM_PROMPT)
+        out["wave_ids"].append(gen.last_token_ids[0])
+    return out
+
+
+def wave_scores(torch, gen, texts: list[str], ids: list[list[int]],
+                row: int, temp: float, max_new: int | None = None):
+    """``gen``'s sampled scores (logits·(1/T) plus the step's Gumbel noise,
+    ``llm_generate``'s key chain) and f32 logits of ``row`` at each of its
+    new tokens, its batch ``texts`` rebuilt as ``generate_batch`` builds
+    it and teacher-forced on ``ids`` (one list a row). ``max_new``: the
+    cache is the one ``llm_generate`` allocates for that many new tokens
+    (the prefill attends over all of it, so its length is in the bits)."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.models.llm import llm_decode_step, llm_forward
+    from audio_rag_tpu_torch.ops import random as jrandom
+
+    tok, dims, dev = gen._tok, gen.dims, gen.device
+    cap = min(gen.config.max_prompt_tokens, dims.max_len - 8)
+    seqs = [tok.encode(t)[-cap:] for t in texts]
+    P = min(1 << (max(map(len, seqs)) - 1).bit_length(), cap)
+    B = 1 << (len(seqs) - 1).bit_length()
+    n = max(map(len, ids)) + 1  # room for a parting at a row's end
+    rows = [(s, (i + [tok.eos_id] * n)[:n]) for s, i in zip(seqs, ids)]
+    rows += [rows[0]] * (B - len(rows))
+    batch = np.full((B, P + n), tok.eos_id, np.int64)
+    mask = np.zeros((B, P), bool)
+    for i, (s, new) in enumerate(rows):
+        s = s[-P:]
+        batch[i, P - len(s):P], batch[i, P:] = s, new
+        mask[i, P - len(s):] = True
+    toks = torch.from_numpy(batch).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    hd = dims.d_model // dims.n_heads
+    C = P + n + 1
+    if max_new is not None:  # generate_batch's quota, llm_generate's cache
+        C = min(dims.max_len, P + min(max_new, dims.max_len - P - 1))
+    cache = [torch.zeros((dims.n_layers, B, dims.n_kv_heads, C, hd),
+                         dtype=gen.dtype, device=dev) for _ in range(2)]
+    valid = torch.cat([m, torch.ones((B, C - P), dtype=torch.bool,
+                                     device=dev)], 1)
+    pos = torch.clamp(torch.cumsum(m.long(), 1) - 1, min=0)
+    logits, _ = llm_forward(gen._params, dims, toks[:, :P], 0, tuple(cache),
+                            gen.dtype, kv_valid=valid, pos_ids=pos,
+                            last_pos=torch.full((B,), P - 1, device=dev))
+    outs = [logits[:, 0]]
+    offset = P - m.long().sum(1)
+    for i in range(P, P + n - 1):
+        lg, *cache = llm_decode_step(
+            gen._params, dims, toks[:, i], i, *cache, kv_valid=valid,
+            dtype=gen.dtype, rope_pos=i - offset, q8=gen._params_q8)
+        outs.append(lg)
+    inv = float(np.float32(1) / np.float32(temp))
+    rng = jrandom.PRNGKey(abs(hash(tuple(texts))) % (2 ** 31))
+    scores = []
+    for lg in outs:
+        key, rng = jrandom.split(rng)
+        scores.append((lg * inv + jrandom.gumbel(key, tuple(lg.shape),
+                                                 dev))[row].cpu().numpy())
+    return scores, [lg[row].cpu().numpy() for lg in outs]
+
+
+def check_header_calls(torch, tag: str, gen, got: list, ref: list,
+                       temp: float) -> int:
+    """The card's header batches (prompts, ids) against the CPU's: equal,
+    or a row parts at a near-tie of the card's own scores — the two tokens
+    its best two, within ``TIE_ULPS`` bf16 ulps of each logit over T —
+    after which the row is not compared. Prints each parting; returns how
+    many there were."""
+    import numpy as np
+
+    parted = 0
+    if [p for p, _ in got] != [p for p, _ in ref]:
+        fail(f"{tag}: the card's header prompts differ from the CPU's")
+    for (texts, gids), (_, rids) in zip(got, ref):
+        for row, (a, b) in enumerate(zip(gids, rids)):
+            if a == b:
+                continue
+            eos = gen._tok.eos_id
+            a2, b2 = a + [eos], b + [eos]
+            step = next(i for i, (x, y) in enumerate(zip(a2, b2)) if x != y)
+            sc, lg = wave_scores(torch, gen, texts, gids, row, temp)
+            top2 = np.argsort(-sc[step])[:2].tolist()
+            mag = np.maximum(np.abs(lg[step][top2]), 2.0 ** -100)
+            bound = TIE_ULPS * float(
+                (2.0 ** (np.floor(np.log2(mag)) - 7)).sum()) / temp
+            gap = float(sc[step][top2[0]] - sc[step][top2[1]])
+            print(f"{tag}: header row {row} parts from the CPU's at token "
+                  f"{step} ({a2[step]} against {b2[step]}): the card's "
+                  f"best two {top2}, score gap {gap:.5f}, near-tie bound "
+                  f"{bound:.5f}", flush=True)
+            if set(top2) != {a2[step], b2[step]} or gap > bound:
+                fail(f"{tag}: header row {row} parts from the CPU's at "
+                     f"token {step} without a near-tie")
+            parted += 1
+    return parted
+
+
+def run_contextual(device: str, workdir: Path, K=None) -> dict:
+    """The spine's three turns through ``AudioRAG.ingest`` with contextual
+    headers from the trained generator (backend "llm", unscheduled, int8
+    decode weights), then extractive ones: each collection's chunk texts,
+    the generator's header batches (prompts, ids) and the stage times.
+    With the kernels module ``K``, each header batch's launches are read
+    from 0 just before it to just after it and held to its decode steps
+    (the ingest's ASR runs ``matmul_q8w`` too, so the ingest's total
+    cannot show that the headers did)."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.audio.charvoice import SR
+    from audio_rag_tpu_torch.audio.io import write_wav
+    from audio_rag_tpu_torch.config import ContextualConfig
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+
+    cfg = spine_config(device, "int8")
+    cfg.contextual = ContextualConfig(enabled=True)
+    cfg.generation = llm_config(model="eval-small", use_scheduler=False,
+                                speculative_k=0)
+    rag = AudioRAG(cfg)
+    wav = workdir / f"ctx_{device}.wav"
+    write_wav(wav, speak(SPINE_TURNS, np.random.default_rng(7),
+                         rag.asr.window_seconds), SR)
+    gen = rag.generator
+    calls = []
+    orig = gen.generate_batch
+
+    def spy(prompts, **kw):
+        before = None if K is None else launch_counts(K)
+        res = orig(prompts, **kw)
+        calls.append((list(prompts), list(gen.last_token_ids)))
+        if K is not None:
+            after = launch_counts(K)
+            check_llm_launches(
+                f"answer[eval-small,contextual] header batch {len(calls)}",
+                {k: after[k] - before[k] for k in after},
+                gen.last_stats["steps"], 8, gen.dims.n_layers)
+            header_q8[0] += after[Q8W] - before[Q8W]
+        return res
+
+    header_q8 = [0]
+    gen.generate_batch = spy
+    out = {"calls": calls, "gen": gen, "timings": {}, "header_q8": header_q8}
+    for backend in ("llm", "extractive"):
+        cfg.contextual.backend = backend
+        res = rag.ingest(str(wav), collection=backend, diarize=False)
+        out[backend] = [c["text"] for c in rag.store._coll(backend).payloads]
+        out["timings"][backend] = res.stage_timings.get("contextualize")
+    del gen.generate_batch
+    return out
+
+
+def check_trained_serving(torch, K, workdir: Path) -> dict:
+    """(a) continued: the speculative single stream, the continuous batcher
+    and contextual headers on the trained generator. Returns launches by
+    path."""
+    by_path = {}
+    gen = trained_generator()
+    L = gen.dims.n_layers
+    spec = run_trained_speculative(K, gen)
+    print(f"answer[eval-small,spec8] verifies "
+          f"{[s['block_verifies'] for s in spec['stats']]} tokens per verify "
+          f"{[s['tokens_per_verify'] for s in spec['stats']]} accept "
+          f"{[s['accept_rate'] for s in spec['stats']]} matmul_q8w a verify "
+          f"{spec['q8_per_verify']}", flush=True)
+    if spec["ids"] != spec["wave_ids"] or spec["ids"] != spec["plain_ids"]:
+        fail(f"answer[eval-small,spec8]: speculative tokens {spec['ids']}, "
+             f"wave {spec['wave_ids']}, plain {spec['plain_ids']}")
+    if any(n != 4 * L + 1 for n in spec["q8_per_verify"]):
+        fail(f"answer[eval-small,spec8]: {spec['q8_per_verify']} "
+             f"matmul_q8w launches a verify, not {4 * L + 1}")
+    by_path["answer[eval-small,spec8]"] = {Q8W: sum(spec["q8_launches"])}
+
+    cont = run_trained_batcher(K, gen)
+    print(f"answer[eval-small,continuous] segments {cont['segments']} "
+          f"late request ms {cont['late_ms']:.1f} wall s "
+          f"{cont['wall_s']:.3f} tokens {[len(i) for i in cont['ids']]} "
+          f"launches {json.dumps(cont['launches'])}", flush=True)
+    if cont["ids"] != cont["wave_ids"]:
+        fail(f"answer[eval-small,continuous]: the batcher's greedy tokens "
+             f"{cont['ids']} differ from the waves' {cont['wave_ids']}")
+    if [s.strip() for s in cont["streamed"]] != cont["texts"]:
+        fail("answer[eval-small,continuous]: the streamed deltas do not "
+             f"join to the answers: {cont['streamed']} {cont['texts']}")
+    check_launches("answer[eval-small,continuous]", cont["launches"], {Q8W})
+    by_path["answer[eval-small,continuous]"] = cont["launches"]
+    gen.unload()
+    free_card(torch)
+
+    K.reset_launches()
+    card = run_contextual("cuda", workdir, K)
+    launches = launch_counts(K)
+    cpu = run_contextual("cpu", workdir)
+    print(f"answer[eval-small,contextual] llm {json.dumps(card['llm'])} "
+          f"extractive {json.dumps(card['extractive'])} contextualize s "
+          f"{json.dumps(card['timings'])} launches {json.dumps(launches)} "
+          f"header matmul_q8w {card['header_q8'][0]} in "
+          f"{len(card['calls'])} batches", flush=True)
+    parted = check_header_calls(torch, "answer[eval-small,contextual]",
+                                card["gen"], card["calls"], cpu["calls"],
+                                0.3)
+    if not parted and card["llm"] != cpu["llm"]:
+        fail(f"answer[eval-small,contextual]: llm-headed chunks "
+             f"{card['llm']} differ from the CPU's {cpu['llm']}")
+    if card["extractive"] != cpu["extractive"]:
+        fail(f"answer[eval-small,contextual]: extractive chunks differ: "
+             f"{card['extractive']} against {cpu['extractive']}")
+    if not any(t.startswith("[Context: ") for t in card["llm"]):
+        fail("answer[eval-small,contextual]: no header was written")
+    check_launches("answer[eval-small,contextual]", launches, {Q8W})
+    if not card["header_q8"][0]:
+        fail("answer[eval-small,contextual]: the header batches launched no "
+             "matmul_q8w")
+    by_path["answer[eval-small,contextual]"] = launches
+    card["gen"].unload()
+    del card, cpu
+    free_card(torch)
+    return by_path
+
+
+def first_verify_logits(torch, inner, prompt: str, k: int = 8):
+    """One prompt prefilled as the generator batches it, then its first
+    decode step and, from the same cache, a verify block of ``k`` (the
+    step's token and ``k`` - 1 drafts): (step logits, the block's first
+    logits), both with the quantized weights."""
+    from audio_rag_tpu_torch.models.llm import (
+        llm_block_verify, llm_decode_step, llm_forward)
+    from audio_rag_tpu_torch.models.whisper import ngram_draft
+
+    dims, dev = inner.dims, inner.device
+    s = inner._tok.encode(prompt)
+    P = 1 << (len(s) - 1).bit_length()
+    toks = torch.full((1, P), inner._tok.eos_id, device=dev)
+    toks[0, P - len(s):] = torch.tensor(s, device=dev)
+    mask = torch.zeros((1, P), dtype=torch.bool, device=dev)
+    mask[0, P - len(s):] = True
+    C, hd = P + k, dims.d_model // dims.n_heads
+    cache = [torch.zeros((dims.n_layers, 1, dims.n_kv_heads, C, hd),
+                         dtype=inner.dtype, device=dev) for _ in range(2)]
+    valid = torch.cat([mask, torch.ones((1, k), dtype=torch.bool,
+                                        device=dev)], 1)
+    pos = torch.clamp(torch.cumsum(mask.long(), 1) - 1, min=0)
+    logits, _ = llm_forward(inner._params, dims, toks, 0, tuple(cache),
+                            inner.dtype, kv_valid=valid, pos_ids=pos,
+                            last_pos=torch.full((1,), P - 1, device=dev))
+    tok = logits[:, -1].argmax(-1)
+    rope = mask.long().sum(1)
+    step, *_ = llm_decode_step(
+        inner._params, dims, tok, P, *(c.clone() for c in cache),
+        kv_valid=valid, dtype=inner.dtype, rope_pos=rope,
+        q8=inner._params_q8)
+    seq = torch.cat([toks, tok[:, None]], 1)
+    block = torch.cat([tok[:, None], ngram_draft(
+        seq, torch.full((1,), P, device=dev), k - 1)], 1)
+    verify, *_ = llm_block_verify(
+        inner._params, dims, block, torch.full((1,), P, device=dev),
+        *cache, kv_valid=valid, rope_pos=rope, dtype=inner.dtype,
+        q8=inner._params_q8)
+    return step, verify[:, 0]
+
+
+def single_streams(torch, K, gen, prompt: str) -> dict:
+    """A greedy single stream through the wave scheduler with
+    ``speculative_k`` 8, then 0, twice in turns: decode tokens/s, verify
+    count and tokens per verify, and each run's tokens."""
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+
+    inner, out = gen.inner, {}
+    for rnd in range(2):
+        for k in (8, 0):
+            inner.config.speculative_k = k
+            K.reset_launches()
+            gen.scheduler.submit(prompt, system=SYSTEM_PROMPT,
+                                 temperature=0.0).result()
+            st = inner.last_stats
+            n = inner.last_token_counts[0]
+            run = {"tokens": n, "prefill_ms": st["prefill_s"] * 1e3,
+                   "decode_tokens_per_s": (n - 1) / st["decode_s"],
+                   "loop_iterations": st["steps"],
+                   "ids": inner.last_token_ids[0],
+                   "q8_launches": K.LAUNCHES[Q8W]}
+            if k:
+                run.update(inner.last_spec_stats)
+            out[f"spec{k}#{rnd}"] = run
+    inner.config.speculative_k = 8
+    return out
+
+
+def held_to_step_path(torch, inner, prompt: str, ids: list) -> list:
+    """A greedy stream ``ids`` of ``prompt`` teacher-forced through the
+    step path (:func:`wave_scores`: the wave's decode step with the
+    quantized weights, the prompt batched as ``generate_batch`` batches
+    it, in a cache of the same length): each token, and the EOS after a
+    stream that ended before its quota, must be the step path's best on
+    the stream's own prefix, or trail the best by at most ``TIE_ULPS``
+    bf16 ulps of each of the two logits. Returns the near-ties met,
+    (index, token, best, gap, bound) each, and the tokens that are
+    neither (the same tuple)."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+
+    quota = inner.config.max_tokens
+    _, logits = wave_scores(torch, inner, [f"{SYSTEM_PROMPT}\n\n{prompt}"],
+                            [list(ids)], 0, 1.0, max_new=quota)
+    want = list(ids)
+    if len(want) < quota:
+        want.append(inner._tok.eos_id)
+    ties, wrong = [], []
+    for i, t in enumerate(want):
+        lg = logits[i]
+        best = int(lg.argmax())
+        if t == best:
+            continue
+        mag = np.maximum(np.abs(lg[[best, t]]), 2.0 ** -100)
+        bound = TIE_ULPS * float((2.0 ** (np.floor(np.log2(mag)) - 7)).sum())
+        gap = float(lg[best] - lg[t])
+        (ties if gap <= bound else wrong).append((i, t, best, gap, bound))
+    return ties, wrong
+
+
+def waves_with_late(gen, prompts: list[str]) -> dict:
+    """``prompts`` but the last as one scheduler wave (the config's
+    temperature) and the last, of ``SHORT_TOKENS``, submitted once the
+    wave has started: aggregate tokens/s and the late request's
+    latency."""
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+
+    inner, sched = gen.inner, gen.scheduler
+    counts = []
+    orig = inner.generate_batch
+
+    def spy(batch, **kw):
+        res = orig(batch, **kw)
+        counts.append(sum(inner.last_token_counts))
+        return res
+
+    inner.generate_batch = spy
+    try:
+        t0 = time.perf_counter()
+        futures = [sched.submit(p, system=SYSTEM_PROMPT)
+                   for p in prompts[:-1]]
+        time.sleep(0.05)  # past the scheduler's 10 ms collection window
+        t_late = time.perf_counter()
+        late = sched.submit(prompts[-1], system=SYSTEM_PROMPT,
+                            max_tokens=SHORT_TOKENS)
+        late.result()
+        now = time.perf_counter()
+        for f in futures:
+            f.result()
+    finally:
+        del inner.generate_batch
+    if len(counts) != 2:
+        fail(f"answer[{LLM},waves+late]: {len(counts)} waves, not 2")
+    return {"requests": len(prompts), "waves": len(counts),
+            "late_ms": (now - t_late) * 1e3,
+            "tokens_per_s": sum(counts) / (now - t0), "wall_s": now - t0}
+
+
+def continuous_with_late(torch, K, rag, prompts: list[str]) -> dict:
+    """The shipped continuous settings (8 slots, segments of 16, idle
+    segments of 48, 2,048 frames a slot) in place of ``rag``'s wave
+    scheduler, around the same loaded generator: ``prompts`` at the
+    config's temperature and a request of ``SHORT_TOKENS`` joining once
+    the first segment is read back. Aggregate tokens/s, the late request's
+    latency, segments and launches; the batcher stays in ``rag`` for
+    ``unload_all``."""
+    from audio_rag_tpu_torch.engine.scheduler import ScheduledGenerator
+    from audio_rag_tpu_torch.generation.prompts import SYSTEM_PROMPT
+
+    wave = rag.generator
+    wave.scheduler.stop()
+    if wave.scheduler._thread.is_alive():
+        fail(f"answer[{LLM}]: the wave scheduler's thread outlived stop")
+    cfg = rag.config.generation
+    cfg.scheduler_mode = "continuous"
+    gen = ScheduledGenerator(
+        wave.inner, mode="continuous", n_slots=cfg.scheduler_slots,
+        segment_tokens=cfg.scheduler_segment_tokens,
+        context_tokens=cfg.scheduler_context_tokens,
+        idle_segment_tokens=cfg.scheduler_idle_segment_tokens)
+    rag._generator = gen
+    b = gen.scheduler
+    K.reset_launches()
+    out = serve_continuous(b, prompts[:-1], prompts[-1], SHORT_TOKENS,
+                           system=SYSTEM_PROMPT)
+    res = {"requests": len(prompts), "late_ms": out["late_ms"],
+           "tokens_per_s": b.tokens_generated / out["wall_s"],
+           "tokens": b.tokens_generated,
+           "segments": b.segments_run, "wall_s": out["wall_s"],
+           "slots": b.n_slots, "segment": b.segment,
+           "idle_segment": b.idle_segment, "context": b.ctx,
+           "launches": launch_counts(K)}
+    if [s.strip() for s in out["streamed"]] != out["texts"]:
+        fail(f"answer[{LLM},continuous]: the streamed deltas do not join "
+             "to the answers")
+    return res
+
+
 def phase_answer(torch, K) -> dict:
     """(a) The trained eval-small generator on the card, with the kernels
     and under ``plain_kernels``, int8 and int8 + int4 head: the same
@@ -2046,8 +2573,12 @@ def phase_answer(torch, K) -> dict:
     first step's logits against the plain path; a traced window of
     decode steps at 16 rows; the same wave with an int4 head. Every
     run's launches are checked against its decode steps and its prompt
-    bucket against the served one. ``AudioRAG.unload_all`` then has to
-    give the card's memory back. Returns launches by path."""
+    bucket against the served one. The serving engine
+    (:func:`check_trained_serving` on the trained generator; at 3b
+    :func:`single_streams`, :func:`first_verify_logits`,
+    :func:`waves_with_late`, :func:`continuous_with_late`).
+    ``AudioRAG.unload_all`` then has to stop the batcher and give the
+    card's memory back. Returns launches by path."""
     from audio_rag_tpu_torch.config import (
         AudioRAGConfig, EmbeddingConfig, RerankingConfig, RetrievalConfig)
     from audio_rag_tpu_torch.engine.scheduler import ScheduledGenerator
@@ -2077,6 +2608,8 @@ def phase_answer(torch, K) -> dict:
                            n_layers=4)
         by_path[path] = out["launches"]
     free_card(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(check_trained_serving(torch, K, Path(tmp)))
 
     # (b) full width
     rag = AudioRAG(AudioRAGConfig(
@@ -2156,15 +2689,67 @@ def phase_answer(torch, K) -> dict:
         ref = first_step_logits(torch, inner, prompts[:4])
     check_logits(f"answer[{LLM}]", [got], [ref])
     del got, ref
+
+    # a greedy single stream: speculative (k = 8) and step decode in turns
+    streams = single_streams(torch, K, gen, prompts[0])
+    print(f"answer[{LLM},single-greedy] " + json.dumps(
+        {tag: {k: v for k, v in run.items() if k != "ids"}
+         for tag, run in streams.items()}), flush=True)
+    for tag, run in streams.items():
+        want = run["loop_iterations"] * (4 * inner.dims.n_layers + 1)
+        if run["q8_launches"] != want:
+            fail(f"answer[{LLM},{tag}]: {run['q8_launches']} matmul_q8w "
+                 f"launches for {run['loop_iterations']} iterations")
+    by_path[f"answer[{LLM},single-greedy]"] = {
+        Q8W: sum(run["q8_launches"] for run in streams.values())}
+    # every stream teacher-forced through the step path: the step
+    # stream itself must come back exactly, the others token by token up
+    # to a near-tie (distinct streams only: each costs a decode loop)
+    step_ids = streams["spec0#0"]["ids"]
+    held: dict[tuple, tuple] = {}
+    for tag in ("spec0#0", "spec8#0", "spec8#1", "spec0#1"):
+        ids = tuple(streams[tag]["ids"])
+        if ids not in held:
+            held[ids] = held_to_step_path(torch, inner, prompts[0], ids)
+        ties, wrong = held[ids]
+        at = next((i for i, (x, y) in enumerate(zip(ids, step_ids))
+                   if x != y), min(len(ids), len(step_ids)))
+        print(f"answer[{LLM},{tag}] tokens equal the step path's through "
+              f"{at} of {len(step_ids)}; teacher-forced through the step "
+              f"path, near-ties (index, token, best, gap, bound) {ties}, "
+              f"beyond {TIE_ULPS} ulps {wrong}", flush=True)
+        if wrong or (tag == "spec0#0" and ties):
+            fail(f"answer[{LLM},{tag}]: greedy tokens that are not the step "
+                 f"path's best on their own prefix: {ties + wrong}")
+    step, verify = first_verify_logits(torch, inner, prompts[0])
+    check_logits(f"answer[{LLM},verify]", [verify], [step])
+    del step, verify
+
+    # 16 requests and a late short one: one wave, then the batcher
+    late_prompts = answer_prompts(ANSWER_WAVE + 1, served=True)
+    waves["waves+late"] = waves_with_late(gen, late_prompts)
+    print(f"answer[{LLM},waves+late] {json.dumps(waves['waves+late'])}",
+          flush=True)
     traced = profile_llm_step(torch, inner, ANSWER_WAVE)
     print(f"answer[{LLM}] traced decode steps at B={ANSWER_WAVE} "
           f"{json.dumps(traced)}", flush=True)
+    cont = continuous_with_late(torch, K, rag, late_prompts)
+    launches = cont.pop("launches")
+    waves["continuous+late"] = cont
+    print(f"answer[{LLM},continuous+late] {json.dumps(cont)} launches "
+          f"{json.dumps(launches)}", flush=True)
+    check_launches(f"answer[{LLM},continuous]", launches, {Q8W})
+    if launches[Q8W] % (4 * inner.dims.n_layers + 1):
+        fail(f"answer[{LLM},continuous]: {launches[Q8W]} matmul_q8w "
+             "launches, not whole decode steps")
+    by_path[f"answer[{LLM},continuous]"] = launches
     peak = torch.cuda.max_memory_allocated() / 1e9
-    thread = gen.scheduler._thread
-    rag.unload_all()  # stops the scheduler, drops the weights
-    if thread.is_alive():
-        fail(f"answer[{LLM}]: the scheduler's thread outlived unload_all")
-    del rag, gen, inner
+    batcher = rag.generator.scheduler
+    rag.unload_all()  # stops the batcher and frees its cache, drops weights
+    if batcher._thread.is_alive() or batcher._cache is not None:
+        fail(f"answer[{LLM}]: the batcher's thread or cache outlived "
+             "unload_all")
+    del rag, gen, inner, batcher
     free_card(torch)
 
     # the same wave with the int4 head

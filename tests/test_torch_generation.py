@@ -7,7 +7,8 @@ the JAX generator's; ``ScheduledGenerator`` coalesces concurrent requests
 into one wave; ``HyDEExpander`` writes the same passage; and
 ``AudioRAG.query(generate_answer=True)`` / ``use_hyde=True`` give the
 answer, passage and ranking of the JAX ``QueryPipeline.query`` on the
-spine's turns. What the slice does not port raises ``ConfigError``, and
+spine's turns. What the port does not have raises ``ConfigError`` (the
+continuous batcher and the speculative program now build and answer), and
 the new modules import nothing of JAX."""
 
 import ast
@@ -471,18 +472,24 @@ def test_unload_all_stops_the_scheduler():
 
 
 def test_unported_modes_raise(monkeypatch):
-    """The continuous batcher, the speculative program, PRF expansion, an
-    LLM checkpoint and speech raise ``ConfigError`` naming what is not
-    ported, and so does the trained generator when its asset is missing;
-    the config refuses unknown names; "none" and "fake" build as in the
-    JAX package."""
-    with pytest.raises(ConfigError, match="continuous"):
-        create_generator(GenerationConfig(scheduler_mode="continuous"),
-                         device="cpu")
+    """PRF expansion, an LLM checkpoint and speech raise ``ConfigError``
+    naming what is not ported, and so does the trained generator when its
+    asset is missing; the continuous batcher and the speculative program,
+    ported since, build and answer instead; the config refuses unknown
+    names; "none" and "fake" build as in the JAX package."""
+    sg = create_generator(GenerationConfig(
+        model="eval-small", temperature=0.0, max_tokens=8,
+        scheduler_mode="continuous", scheduler_slots=2), device="cpu")
+    try:
+        assert type(sg.scheduler).__name__ == "ContinuousBatcher"
+        assert sg.generate("what is gradient descent")
+    finally:
+        sg.unload()
     gen = LLMGenerator(GenerationConfig(model="eval-small", temperature=0.0,
-                                        speculative_k=4), device="cpu")
-    with pytest.raises(ConfigError, match="speculative"):
-        gen.generate("what is gradient descent")
+                                        speculative_k=4, max_tokens=8),
+                       device="cpu")
+    assert gen.generate("what is gradient descent") is not None
+    assert gen.last_spec_stats["block_verifies"] >= 1
     with pytest.raises(ConfigError, match="not ported"):
         LLMGenerator(GenerationConfig(checkpoint_path="/x"),
                      device="cpu").load()
@@ -513,8 +520,8 @@ def test_unported_modes_raise(monkeypatch):
 
 
 def test_new_modules_import_no_jax():
-    """The source scan over the generation, expansion, scheduler and LLM
-    modules (``test_torch_slice.py`` imports every module of the port in
+    """The source scan over the generation, expansion, scheduler,
+    continuous batcher, contextual and LLM modules (``test_torch_slice.py`` imports every module of the port in
     a process without JAX)."""
     mods = ["audio_rag_tpu_torch/models/llm.py",
             "audio_rag_tpu_torch/generation/__init__.py",
@@ -523,6 +530,9 @@ def test_new_modules_import_no_jax():
             "audio_rag_tpu_torch/generation/llm.py",
             "audio_rag_tpu_torch/generation/prompts.py",
             "audio_rag_tpu_torch/engine/scheduler.py",
+            "audio_rag_tpu_torch/engine/continuous.py",
+            "audio_rag_tpu_torch/contextual/__init__.py",
+            "audio_rag_tpu_torch/contextual/processor.py",
             "audio_rag_tpu_torch/expansion/__init__.py",
             "audio_rag_tpu_torch/expansion/hyde.py"]
     for m in mods:
