@@ -37,8 +37,13 @@ falls back to "en" with a warning. ``condition_on_previous_text`` decodes
 the windows one at a time, each prompt ``<|startofprev|>`` + the tokens
 decoded since the last reset (cut down to a bucket length) + the SOT
 sequence. Not ported here: the HF tokenizer's word map (without one every
-token is a word, as in the JAX backend), ``transcribe_chunk_batch`` and
-``detect_language_rows`` (streaming).
+token is a word, as in the JAX backend).
+
+The streaming mux's path: :meth:`WhisperASR.transcribe_chunk_batch` runs
+short independent chunks (different sessions' audio) as one window batch,
+each row with its own language token; a chunk without a language detects
+its own, all such rows in one :meth:`WhisperASR.detect_language_rows`
+call.
 """
 
 from __future__ import annotations
@@ -51,7 +56,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from audio_rag_tpu_torch.asr.vad import VADOptions, speech_segments
+from audio_rag_tpu_torch.asr.vad import (
+    VADOptions,
+    speech_segments,
+    speech_segments_batch,
+)
 from audio_rag_tpu_torch.asr.word_timing import attention_to_word_times
 from audio_rag_tpu_torch.audio.io import decode_audio
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
@@ -91,7 +100,8 @@ N_SAMPLES = 30 * SAMPLE_RATE  # the audio language detection reads
 class WhisperASR:
     """Batched-window Whisper on one device.
 
-    ``timings`` accumulates, per :meth:`transcribe` call, host-clock seconds
+    ``timings`` accumulates, per :meth:`transcribe` (or
+    :meth:`transcribe_chunk_batch`) call, host-clock seconds
     of the VAD, language detection, mel, encode, decode and word-alignment
     stages (each ends in a device synchronize or a copy to the host on
     CUDA; ``align_s`` is the teacher-forced pass and the host's word
@@ -163,6 +173,10 @@ class WhisperASR:
             self._params_q8 = quantize_decoder_weights(
                 params, self.dims, self.decoder_bits, self.lm_head_bits)
 
+    def unload(self) -> None:
+        """Drop the weights; the next use loads them again."""
+        self._params = self._params_q8 = None
+
     # -- public API --------------------------------------------------------
     def _max_new(self) -> int:
         if self.dims.n_text_ctx >= 448:
@@ -181,12 +195,7 @@ class WhisperASR:
                    language: str | None = None) -> list[TranscriptSegment]:
         if not self.is_loaded:
             self.load()
-        self.timings = {"vad_s": 0.0, "detect_s": 0.0, "mel_s": 0.0,
-                        "encode_s": 0.0, "decode_s": 0.0, "align_s": 0.0,
-                        "dtw_s": 0.0, "decode_steps": 0, "windows": 0,
-                        "batches": 0, "fallback_decodes": 0,
-                        "fallback_steps": 0, "fallback_s": 0.0}
-        self.window_temps = []
+        self._reset_timings()
         wav, sr = decode_audio(audio, sample_rate)
         if wav.size == 0:
             return []
@@ -201,15 +210,7 @@ class WhisperASR:
                 return []
         else:
             spans = [(0.0, len(wav) / sr)]
-        # windows on integer sample indices, offsets relative to the file
-        step = int(round(self.window_seconds * sr))
-        windows: list[tuple[float, np.ndarray]] = []
-        for s, e in spans:
-            s_idx, e_idx = int(round(s * sr)), int(round(e * sr))
-            for start in range(s_idx, e_idx, step):
-                seg = wav[start: min(start + step, e_idx)]
-                if seg.size >= int(0.2 * sr):  # skip sub-200ms tails
-                    windows.append((start / sr, seg))
+        windows = self._split_windows(wav, spans)
         if not windows:
             return []
 
@@ -267,12 +268,160 @@ class WhisperASR:
                                      self.tokens, self.dtype)
         return int(lang[0]), float(prob[0])
 
+    @torch.inference_mode()
+    def detect_language_rows(self, rows: list[np.ndarray],
+                             pad_to: int | None = None) -> list[int]:
+        """Language offsets of many 16 kHz audio rows in one batch, each
+        row detected on its own audio: zero-padded or cut to one model
+        window, its log-mel, the encoder, one decoder step over
+        ``<|sot|>``. The batch is ``pad_to`` rows when that holds them,
+        else the next power of two."""
+        if not self.is_loaded:
+            self.load()
+        n = 2 * self.dims.n_audio_ctx * HOP_LENGTH
+        R = len(rows)
+        B = pad_to if pad_to and pad_to >= R else 1 << (R - 1).bit_length()
+        clips = np.zeros((B, n), np.float32)
+        for j, w in enumerate(rows):
+            clips[j, : min(len(w), n)] = w[:n]
+        mel = log_mel_batch(torch.from_numpy(clips).to(self.device),
+                            n_mels=self.dims.n_mels)
+        enc = encode(self._params, self.dims, mel, dtype=self.dtype)
+        lang, _ = detect_language(self._params, self.dims, enc, self.tokens,
+                                  self.dtype)
+        return [int(v) for v in lang[:R].tolist()]
+
+    @torch.inference_mode()
+    def transcribe_chunk_batch(self, chunks: list[np.ndarray],
+                               sample_rate: int | None = None,
+                               word_timestamps: bool = False,
+                               language: str | list[str | None] | None = None,
+                               pad_to: int | None = None
+                               ) -> list[list[TranscriptSegment]]:
+        """Independent chunks of at most about one window (live sessions'
+        audio) as one window batch: one segment list per chunk, times
+        relative to the chunk, an empty list where the VAD or the
+        no-speech gate dropped it.
+
+        Rows are each chunk's speech spans (one VAD call over all chunks
+        under ``vad_filter``) cut into windows as :meth:`transcribe` cuts
+        them. When they outnumber ``pad_to``, each chunk collapses to its
+        spans' envelope cut to one window, so the batch keeps its size.
+        ``language`` is one code for all chunks or one per chunk (None:
+        the config's); unknown codes become "en"; rows still without one
+        detect their own on vocabularies of 51,865 tokens or more
+        (:meth:`detect_language_rows`, one batch), else take "en". The
+        batch is ``pad_to`` rows when that holds them, else the next power
+        of two. :attr:`timings` is set as :meth:`transcribe` sets it."""
+        if not self.is_loaded:
+            self.load()
+        self._reset_timings()
+        wavs = [decode_audio(c, sample_rate)[0] for c in chunks]
+        outs: list[list[TranscriptSegment]] = [[] for _ in wavs]
+        c = self.config
+        if c.vad_filter:  # one VAD call set over every chunk
+            t0 = time.perf_counter()
+            all_spans = speech_segments_batch(wavs, SAMPLE_RATE, VADOptions(
+                backend=c.vad_backend, threshold=c.vad_threshold),
+                device=self.device)
+            self.timings["vad_s"] = time.perf_counter() - t0
+        else:
+            all_spans = [[(0.0, len(w) / SAMPLE_RATE)] if len(w) else []
+                         for w in wavs]
+
+        def rows_of(spans_per_chunk):
+            rows, idx = [], []
+            for k, (wav, spans) in enumerate(zip(wavs, spans_per_chunk)):
+                for row in self._split_windows(wav, spans):
+                    rows.append(row)
+                    idx.append(k)
+            return rows, idx
+
+        rows, idx = rows_of(all_spans)
+        if pad_to and len(rows) > pad_to:
+            window_s = self.window_seconds
+            rows, idx = rows_of([
+                [(s[0][0], min(s[-1][1], s[0][0] + window_s))] if s else []
+                for s in all_spans])
+        if not rows:
+            return outs
+
+        if isinstance(language, list):
+            chunk_langs = [lang or c.language for lang in language]
+        else:
+            chunk_langs = [language or c.language] * len(wavs)
+        langs: list = [chunk_langs[k] for k in idx]
+        offs = [0] * len(rows)
+        to_detect = []
+        for j, lang in enumerate(langs):
+            if not lang:
+                to_detect.append(j)
+                continue
+            try:
+                offs[j] = language_offset(lang)
+            except ValueError:
+                log.warning("unknown language %r; defaulting to en", lang)
+                langs[j] = "en"
+        if to_detect and self.dims.n_vocab >= 51865:
+            t0 = time.perf_counter()
+            det = self.detect_language_rows(
+                [rows[j][1] for j in to_detect],
+                pad_to=pad_to if pad_to and pad_to >= len(to_detect)
+                else None)
+            self.timings["detect_s"] = time.perf_counter() - t0
+            for j, off in zip(to_detect, det):
+                offs[j] = off
+                langs[j] = WHISPER_LANGUAGES[off]
+            log.info("detected languages %s",
+                     sorted({langs[j] for j in to_detect}))
+        else:
+            for j in to_detect:
+                langs[j] = "en"
+
+        B = (pad_to if pad_to and pad_to >= len(rows)
+             else 1 << (len(rows) - 1).bit_length())
+        per_row = self._transcribe_batch(rows, langs, offs, B,
+                                         want_words=word_timestamps,
+                                         grouped=True)
+        for k, segs in zip(idx, per_row):
+            if word_timestamps:
+                for seg in segs:
+                    if not seg.words:
+                        seg.words = interpolate_words(seg)
+            outs[k].extend(segs)  # a chunk of 2+ spans has 2+ rows
+        return outs
+
     def transcribe_with_words(self, audio: np.ndarray | str,
                               sample_rate: int | None = None,
                               **kw: Any) -> list[TranscriptSegment]:
         return self.transcribe(audio, sample_rate, word_timestamps=True, **kw)
 
     # -- internals ---------------------------------------------------------
+    def _reset_timings(self) -> None:
+        self.timings = {"vad_s": 0.0, "detect_s": 0.0, "mel_s": 0.0,
+                        "encode_s": 0.0, "decode_s": 0.0, "align_s": 0.0,
+                        "dtw_s": 0.0, "decode_steps": 0, "windows": 0,
+                        "batches": 0, "fallback_decodes": 0,
+                        "fallback_steps": 0, "fallback_s": 0.0}
+        self.window_temps = []
+
+    def _split_windows(self, wav: np.ndarray,
+                       spans: list[tuple[float, float]]
+                       ) -> list[tuple[float, np.ndarray]]:
+        """Each (start_s, end_s) span of 16 kHz ``wav`` cut into windows of
+        the model's audio context on integer sample indices: (offset_s,
+        samples) pairs; tails under 200 ms are dropped."""
+        step = 2 * self.dims.n_audio_ctx * HOP_LENGTH
+        windows = []
+        for s, e in spans:
+            s_idx = int(round(s * SAMPLE_RATE))
+            e_idx = min(int(round(e * SAMPLE_RATE)), len(wav))
+            for start in range(s_idx, e_idx, step):
+                seg = wav[start: min(start + step, e_idx)]
+                if seg.size >= int(0.2 * SAMPLE_RATE):
+                    windows.append((start / SAMPLE_RATE, seg))
+        return windows
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -316,15 +465,19 @@ class WhisperASR:
 
     @torch.inference_mode()
     def _transcribe_batch(self, windows: list[tuple[float, np.ndarray]],
-                          lang: str, lang_off: int, pad_to: int | None,
-                          want_words: bool = False,
+                          lang: str | list[str], lang_off: int | list[int],
+                          pad_to: int | None, want_words: bool = False,
                           prev_ids: list[int] | None = None,
-                          return_meta: bool = False):
-        """Segments of a window batch; with ``return_meta`` also
-        ``{"clean_ids", "final_temp"}`` per window (the conditioned
-        path's history and reset rule). ``prev_ids`` (one window) puts
-        ``<|startofprev|>`` + them before the SOT sequence."""
+                          return_meta: bool = False, grouped: bool = False):
+        """Segments of a window batch (``grouped``: one list per window);
+        with ``return_meta`` also ``{"clean_ids", "final_temp"}`` per
+        window (the conditioned path's history and reset rule).
+        ``lang``/``lang_off`` are one language for all windows or one per
+        window. ``prev_ids`` (one window) puts ``<|startofprev|>`` + them
+        before the SOT sequence."""
         n_real = len(windows)
+        langs = lang if isinstance(lang, list) else [lang] * n_real
+        offs = lang_off if isinstance(lang_off, list) else [lang_off] * n_real
         B = max(pad_to or 0, n_real)  # zero windows pad the tail batch
         n_samples = 2 * self.dims.n_audio_ctx * HOP_LENGTH
         win = np.zeros((B, n_samples), np.float32)
@@ -349,7 +502,8 @@ class WhisperASR:
         else:
             prompt = np.tile(np.array([sot_seq], np.int64), (B, 1))
         P = prompt.shape[1]
-        prompt[:n_real, P - 3] += lang_off  # per-row language (pad rows: en)
+        for j in range(n_real):  # per-row language (pad rows: en)
+            prompt[j, P - 3] = st.lang_base + offs[j]
         prompt_t = torch.from_numpy(prompt).to(self.device)
         toks, avg_lp, no_speech, steps = self._decode(enc, prompt_t)
         tokens = toks.cpu().numpy()
@@ -403,16 +557,17 @@ class WhisperASR:
             weights = self._collect_cross_weights(enc, prompt, clean)
             self.timings["align_s"] += time.perf_counter() - t4
 
-        out: list[TranscriptSegment] = []
+        per_window: list[list[TranscriptSegment]] = []
         clean_ids: list[list[int]] = []
         dtw_before = self.timings["dtw_s"]
         for j, (t0w, seg_audio) in enumerate(windows):
             text_ids = self._strip_special(tokens[j], P)
             clean_ids.append([] if silent[j] else text_ids)
             if silent[j]:
+                per_window.append([])
                 continue
             dur = len(seg_audio) / SAMPLE_RATE
-            segs = self._tokens_to_segments(text_ids, t0w, dur, lang)
+            segs = self._tokens_to_segments(text_ids, t0w, dur, langs[j])
             for s in segs:
                 s.avg_logprob = round(float(avg_lp[j]), 4)
             if weights is not None and segs:
@@ -420,8 +575,11 @@ class WhisperASR:
                 self._apply_word_times(segs, weights[j], clean[j], dur, t0w,
                                        prompt_len=P)
                 self.timings["dtw_s"] += time.perf_counter() - t4
-            out.extend(segs)
+            per_window.append(segs)
         self.timings["align_s"] += self.timings["dtw_s"] - dtw_before
+        if grouped:
+            return per_window
+        out = [seg for segs in per_window for seg in segs]
         if return_meta:
             return out, {"clean_ids": clean_ids, "final_temp": final_temp}
         return out

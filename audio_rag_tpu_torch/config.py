@@ -1,7 +1,7 @@
 """The port's own configuration: plain dataclasses holding the ASR,
 diarization, alignment, embedding, retrieval, reranking, chunking,
 contextual-header, generation and query-expansion fields the ported slice
-uses, plus the device.
+uses, the live-transcription buffering, plus the device.
 
 Every field a dataclass shares with ``audio_rag_tpu/config/schema.py`` has
 the schema's name, default and bounds: ``AudioRAG()`` runs Whisper
@@ -44,6 +44,7 @@ __all__ = [
     "RerankingConfig",
     "GenerationConfig",
     "ExpansionConfig",
+    "StreamingSchema",
     "AudioRAGConfig",
 ]
 
@@ -366,6 +367,42 @@ class ExpansionConfig:
 
 
 @dataclass
+class StreamingSchema:
+    """Live-transcription buffering (the schema's ``StreamingSchema``;
+    ``configs/low_latency.yaml`` ships 3 s chunks, 0.6 s overlap, 40
+    tokens)."""
+
+    #: seconds of audio buffered before each transcription pass
+    chunk_duration: float = 5.0
+    #: seconds fed again from the previous chunk
+    overlap_duration: float = 1.0
+    #: decode budget per chunk
+    max_decode_tokens: int = 64
+    #: carried to the session as the JAX package carries it, and applied
+    #: by neither (ROADMAP.md §3)
+    min_avg_logprob: float | None = None
+    #: live sessions served at once
+    max_sessions: int = 8
+
+    def __post_init__(self):
+        _check_bounds(self, (("chunk_duration", 0.5, 30.0),
+                             ("overlap_duration", 0.0, 10.0),
+                             ("max_decode_tokens", 8, 224),
+                             ("max_sessions", 1, 64)))
+
+    def to_runtime(self):
+        """The :class:`~audio_rag_tpu_torch.asr.streaming.StreamingConfig`
+        a :class:`~audio_rag_tpu_torch.asr.streaming.StreamingASR` takes."""
+        from audio_rag_tpu_torch.asr.streaming import StreamingConfig
+
+        return StreamingConfig(
+            chunk_duration=self.chunk_duration,
+            overlap_duration=self.overlap_duration,
+            max_decode_tokens=self.max_decode_tokens,
+            min_avg_logprob=self.min_avg_logprob)
+
+
+@dataclass
 class AudioRAGConfig:
     asr: ASRConfig = field(default_factory=ASRConfig)
     diarization: DiarizationConfig = field(default_factory=DiarizationConfig)
@@ -377,5 +414,6 @@ class AudioRAGConfig:
     reranking: RerankingConfig = field(default_factory=RerankingConfig)
     generation: GenerationConfig = field(default_factory=GenerationConfig)
     expansion: ExpansionConfig = field(default_factory=ExpansionConfig)
+    streaming: StreamingSchema = field(default_factory=StreamingSchema)
     #: "cuda" (default) or "cpu"; CUDA without a card raises
     device: str = "cuda"

@@ -9,6 +9,7 @@ from typing import Any
 __all__ = [
     "AudioRAGError",
     "ConfigError",
+    "ModelNotLoadedError",
     "AudioProcessingError",
     "TranscriptionError",
     "RetrievalError",
@@ -27,6 +28,10 @@ class AudioRAGError(Exception):
 
 class ConfigError(AudioRAGError):
     """Invalid configuration (including a device that is not present)."""
+
+
+class ModelNotLoadedError(AudioRAGError):
+    """A backend was used before ``load()``."""
 
 
 class AudioProcessingError(AudioRAGError):

@@ -219,10 +219,11 @@ class ContinuousBatcher:
         if tok.eos_id in ids:
             ids = ids[:ids.index(tok.eos_id)]
         ids = ids[:slot.max_new]
-        if not slot.request.future.done():
-            slot.request.future.set_result(tok.decode(ids).strip())
+        # counted before the caller wakes (it may read the counters next)
         self.requests_served += 1
         self.tokens_generated += len(ids)
+        if not slot.request.future.done():
+            slot.request.future.set_result(tok.decode(ids).strip())
 
     def _dispatch_segment(self, chain: dict | None = None) -> dict:
         """Issue one segment and start its readback; the record goes to

@@ -103,14 +103,20 @@ class GenerationScheduler:
                     [r.prompt for r in wave], system=wave[0].system,
                     max_tokens=wave[0].max_tokens,
                     temperature=wave[0].temperature)
-                for r, text in zip(wave, results):
-                    r.future.set_result(text)
+                error = None
             except Exception as exc:  # handed to every caller of the wave
-                for r in wave:
-                    if not r.future.done():
-                        r.future.set_exception(exc)
+                error = exc
+            # counted before any caller wakes: a caller that reads the
+            # counters after its answer sees its own wave
             self.batches_run += 1
             self.requests_served += len(wave)
+            if error is None:
+                for r, text in zip(wave, results):
+                    r.future.set_result(text)
+            else:
+                for r in wave:
+                    if not r.future.done():
+                        r.future.set_exception(error)
 
 
 class ScheduledGenerator:

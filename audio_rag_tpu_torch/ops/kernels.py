@@ -29,15 +29,24 @@ raises on input its kernel does not take; a CUDA tensor goes to the kernel
 (or the wrapper raises), a CPU tensor goes to the plain PyTorch version of
 the same function beside it. There is no fallback from a failed build or
 launch. Each launch adds one to :data:`LAUNCHES`.
+
+Kernels launch from more than one thread (the streaming mux's worker, the
+caller's, a query coalescer's): :func:`build`, :func:`load` and the first
+use of a kernel hold the lock of the library file they make or open, so
+each library is built and loaded once per process however many threads
+reach it together (libraries of other kernels or flags still build side
+by side), and the counters are added to under a lock of their own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -107,12 +116,20 @@ _F32, _BF16 = 0, 1
 _DTYPE_CODE = {torch.float32: _F32, torch.bfloat16: _BF16}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_lib_files: dict[str, Path] = {}  # the file each entry of _libs came from
+#: one lock per library file, held while it is built or loaded (re-entrant:
+#: load builds)
+_FILE_LOCKS: dict[Path, threading.RLock] = {}
+_FILE_LOCKS_GUARD = threading.Lock()
+#: held while a counter is added to or reset
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_VARIANTS):
-        for name in counts:
-            counts[name] = 0
+    with _COUNT_LOCK:
+        for counts in (LAUNCHES, FLASH_VARIANTS):
+            for name in counts:
+                counts[name] = 0
 
 
 # -- build -----------------------------------------------------------------
@@ -149,21 +166,35 @@ def build(names=None, verbose: bool = False,
     ``{"seconds", "log"}`` (``log`` holds ``-Xptxas -v`` output when
     ``verbose``); raises with nvcc's messages when a build fails."""
     names = list(KERNELS) if names is None else list(names)
+    outs = {name: _lib_path(name, defines) for name in names}
+    with contextlib.ExitStack() as held:
+        for path in sorted(set(outs.values())):  # one order: no deadlock
+            held.enter_context(_file_lock(path))
+        return _build(outs, verbose, defines)
+
+
+def _file_lock(path: Path) -> threading.RLock:
+    with _FILE_LOCKS_GUARD:
+        return _FILE_LOCKS.setdefault(path, threading.RLock())
+
+
+def _build(outs: dict[str, Path], verbose: bool,
+           defines: tuple[str, ...]) -> dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = _lib_path(name, defines)
+    for name, out in outs.items():
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *_NVCC_FLAGS, *(f"-D{d}" for d in defines),
                *(("-Xptxas", "-v") if verbose else ()),
                "-o", str(tmp), str(_CSRC / KERNELS[name].source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    report = {name: {"seconds": 0.0, "log": ""} for name in names}
+    report = {name: {"seconds": 0.0, "log": ""} for name in outs}
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -208,22 +239,29 @@ _ARGTYPES = {
 
 def load(name: str, defines: tuple[str, ...] = ()) -> None:
     """Make the kernel's wrapper call the library built with ``defines``
-    (building it if needed); ``load(name)`` goes back to the defaults."""
+    (building it if needed); ``load(name)`` goes back to the defaults.
+    A library already in use is not opened again."""
     path = _lib_path(name, defines)
-    if not path.exists():
-        build([name], defines=defines)
-    lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = _ARGTYPES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    _libs[name] = lib
+    with _file_lock(path):
+        if _lib_files.get(name) == path:
+            return
+        if not path.exists():
+            build([name], defines=defines)
+        lib = ctypes.CDLL(str(path))
+        fn_name, argtypes = _ARGTYPES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+        _lib_files[name] = path
 
 
 def _entry(name: str):
-    if name not in _libs:
+    lib = _libs.get(name)
+    if lib is None:
         load(name)
-    return getattr(_libs[name], _ARGTYPES[name][0])
+        lib = _libs[name]
+    return getattr(lib, _ARGTYPES[name][0])
 
 
 def _route(name: str, *tensors: torch.Tensor) -> bool:
@@ -250,7 +288,8 @@ def _check(cond: bool, name: str, msg: str) -> None:
 def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 # -- flash attention ---------------------------------------------------------
@@ -309,7 +348,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       strides, B, H, Tq, D, kv_len, D ** -0.5,
                       _DTYPE_CODE[q.dtype], _stream(q), ctypes.byref(variant))
     _launched(name, rc)
-    FLASH_VARIANTS[_FLASH_VARIANT_NAMES[variant.value]] += 1
+    with _COUNT_LOCK:
+        FLASH_VARIANTS[_FLASH_VARIANT_NAMES[variant.value]] += 1
     return ov
 
 

@@ -135,12 +135,37 @@ subset):
               idle segments of 48, 2,048 frames: tokens/s and the late
               request's latency), then ``AudioRAG.unload_all`` stopping the
               batcher.
+12. stream  — live transcription: (a) tiny-synth (trained, f32) in the
+              JAX end-to-end streaming test's session (4 s chunks, 0.5 s
+              overlap, 112 tokens): its utterance and four sessions'
+              speech replayed through ``StreamingASR`` on the card and the
+              CPU (the same chunks, texts and words, word times within
+              0.02 s; 3 of the 4 spoken words heard), then the four
+              sessions at once through one ``StreamingMux`` of 4, each
+              equal to its replay alone, in f32 and the int8 profile, the
+              mux run's launches checked; (b) large-v3 (seeded) in the
+              shipped streaming profile (``configs/low_latency.yaml``:
+              bf16, int8 cross K/V and decode weights, 3 s chunks, 0.6 s
+              overlap, 40 tokens, learned VAD, languages detected per
+              session, word times, the ladder on): one row's first-step
+              logits at B = 8 within 5 % of the row alone, a lone chunk's
+              dispatch ms, 8 sessions of 12 s fed unpaced from 8 threads
+              through one mux of 8 with the ladder and without (dispatch
+              ms at B = 8 and 1, chunks served and batches run,
+              submit-to-result p50/p95, the detect dispatches, launches a
+              dispatch with every flash call on wgmma and no plain version
+              called, peak memory), and the pad rows' price (2 chunks at
+              B = 8 against B = 2, in turns); (c) 32 single queries from
+              their own threads through a ``QueryCoalescer`` on the query
+              spine: the rankings of one direct ``query_batch``, in fewer
+              batches, no kernel launched.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
 the script fails without it, so the word-time DTW of every ingest runs in
 C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
-``query`` after ``fallback``, ``answer`` after ``query``.
+``query`` after ``fallback``, ``answer`` after ``query``, ``stream``
+after ``answer``.
 The spine, the diarized ingest and the large-v3 paths other than
 ``fallback`` run with the fallback ladder off and, at large-v3, in
 English, as ``bench.py`` measures. The spine ingests with
@@ -237,6 +262,8 @@ LLAMA_3B_Q8W = [  # (din, dout, calls per decode step) under decoder_int8
 ]
 #: a single stream, a verify block of 8 (or 8 slots), the full wave
 LLM_ROWS = (1, 8, 16)
+#: the stream path's dispatches: a lone chunk, a full mux of 8
+STREAM_ROWS = (1, 8)
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "SETMAXREG", "MUFU.EX2",
@@ -267,7 +294,10 @@ def sass_census(K, name: str) -> dict:
 
 
 def fail(msg: str) -> None:
+    """Print the failure on both streams (a caller that keeps only the
+    tail of one still sees it) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -775,6 +805,18 @@ def phase_kernels(torch, K) -> dict:
         *[(f"matmul_q4w@llm{B}", (lambda B: lambda t: _q4w_case(
             torch, K, B, 3072, 128256, 128, bf16, flush, t))(B), True)
           for B in LLM_ROWS],
+        # the stream path (configs/low_latency.yaml): every int8 linear,
+        # the encoder's attention and the cross kernel at a lone chunk's
+        # dispatch and at a full mux's
+        *[(f"matmul_q8w@stream{B}", (lambda B, din, dout: lambda t:
+            _q8w_case(torch, K, B, din, dout, bf16, flush, t))(B, din, dout),
+            True) for B in STREAM_ROWS for din, dout, _ in LARGE_V3_Q8W],
+        *[(f"flash_attention@stream{B}", (lambda B: lambda t: _flash_case(
+            torch, K, (B, 20, 1500, 64), bf16, flush, t, layout="bthd",
+            expect="wgmma"))(B), True) for B in STREAM_ROWS],
+        *[(f"decode_cross_attention_q8@stream{B}", (lambda B: lambda t:
+            _cross_case(torch, K, B, 20, 1, 64, 1500, bf16, flush, t))(B),
+            True) for B in STREAM_ROWS],
         # decoder_int4's 3b block shapes (not on the answer path)
         *[("matmul_q4w", (lambda din, dout: lambda t: _q4w_case(
             torch, K, 16, din, dout, 128, bf16, flush, t))(din, dout),
@@ -888,6 +930,15 @@ def phase_kernels(torch, K) -> dict:
                 llm[B]["q8_blocks"],
             "matmul_q4w, the int4 head (lm_head_int4, group 128)":
                 llm[B]["q4_head"]}), flush=True)
+    for B in STREAM_ROWS:
+        print(f"stream path B={B}", json.dumps({
+            "matmul_q8w, the 257 calls a decode step":
+                agg(large[f"{Q8W}@stream{B}"],
+                    [c for _, _, c in LARGE_V3_Q8W]),
+            f"flash_attention at ({B}, 20, 1500, 64) bf16, head-strided, "
+            "per call": agg(large[f"{FLASH}@stream{B}"], [1]),
+            f"decode_cross_attention_q8 at ({B}, 20, 1, 64), Ta 1500, per "
+            "call": agg(large[f"{CROSS8}@stream{B}"], [1])}), flush=True)
     print("decode-step sums", json.dumps({
         "matmul_q8w at B=32, the benchmark profile's 256 int8 block calls":
             agg(large["matmul_q8w@32"], [c for _, _, c in LARGE_V3_Q8W[:3]]),
@@ -2786,6 +2837,510 @@ def phase_answer(torch, K) -> dict:
     return by_path
 
 
+# -- phase 12: live transcription ---------------------------------------------------
+
+#: the JAX end-to-end streaming test's session and utterance
+STREAM_TINY = {"chunk_duration": 4.0, "overlap_duration": 0.5,
+               "max_decode_tokens": 112}
+STREAM_E2E = "the model learns fast and stops"
+STREAM_PHRASES = SPINE_TURNS + [STREAM_E2E]
+#: configs/low_latency.yaml's streaming section
+STREAM_SHIPPED = {"chunk_duration": 3.0, "overlap_duration": 0.6,
+                  "max_decode_tokens": 40}
+#: live sessions (the schema's max_sessions) and seconds of speech each
+STREAM_SESSIONS, STREAM_SECONDS = 8, 15.0
+STREAM_QUERIES = 32
+
+
+def stream_rows(results) -> list:
+    """StreamingResults as plain rows: text, chunk bounds, final, words."""
+    return [{"text": r.text, "start": r.start, "end": r.end,
+             "final": r.is_final,
+             "words": [(w.text, w.start, w.end) for w in r.words]}
+            for r in results]
+
+
+def stream_gap(got: list, ref: list) -> float | None:
+    """The largest word-time difference of two replays with the same
+    chunks, texts and words; None where those differ."""
+    key = [(r["text"], r["start"], r["end"], r["final"],
+            [w[0] for w in r["words"]]) for r in ref]
+    if [(r["text"], r["start"], r["end"], r["final"],
+         [w[0] for w in r["words"]]) for r in got] != key:
+        return None
+    return max((abs(a[i] - b[i]) for g, r in zip(got, ref)
+                for a, b in zip(g["words"], r["words"]) for i in (1, 2)),
+               default=0.0)
+
+
+def same_stream(tag: str, got: list, ref: list) -> None:
+    """Fail unless two replays agree: chunks, texts and words equal, word
+    times within :data:`TIME_TOL`."""
+    gap = stream_gap(got, ref)
+    if gap is None or gap > TIME_TOL:
+        fail(f"{tag}: {json.dumps(got)} differs from {json.dumps(ref)}")
+
+
+def stream_utterances():
+    """The end-to-end test's utterance (its draw: seed 3) and four
+    sessions' speech, two phrases each."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.audio.charvoice import SR, synth_text
+
+    e2e = synth_text(STREAM_E2E, np.random.default_rng(3),
+                     noise_level=0.005)
+    rng = np.random.default_rng(17)
+    gap = np.zeros(int(0.3 * SR), np.float32)
+    sessions = [np.concatenate([
+        synth_text(STREAM_PHRASES[i], rng, noise_level=0.005), gap,
+        synth_text(STREAM_PHRASES[(i + 1) % 4], rng, noise_level=0.005)])
+        for i in range(4)]
+    return e2e, sessions
+
+
+def run_tiny_stream(device: str, profile: str):
+    """Tiny-synth (trained, f32, VAD and ladder off) in ``profile``
+    ("fp32" or a :data:`PROFILES` key): the end-to-end replay and each
+    session's speech replayed alone through one ``StreamingASR``.
+    Returns the rows and the backend."""
+    from audio_rag_tpu_torch.asr.streaming import (
+        StreamingASR, StreamingConfig)
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+    from audio_rag_tpu_torch.audio.charvoice import SR
+    from audio_rag_tpu_torch.config import ASRConfig
+
+    switches = {} if profile == "fp32" else PROFILES[profile][0]
+    asr = WhisperASR(ASRConfig(
+        model_size="tiny-synth", compute_type="float32", vad_filter=False,
+        temperature_fallback=False,
+        max_decode_tokens=STREAM_TINY["max_decode_tokens"], **switches),
+        device)
+    e2e, sessions = stream_utterances()
+    sess = StreamingASR(asr.config, StreamingConfig(**STREAM_TINY),
+                        backend=asr)
+    sess.load()
+    try:
+        out = {"e2e": stream_rows(sess.process_stream(e2e, SR)),
+               "alone": [stream_rows(sess.process_stream(a, SR))
+                         for a in sessions]}
+    finally:
+        sess.unload()
+    return out, asr
+
+
+def run_sessions(mux, config, stream_cfg, audios) -> tuple[list, float,
+                                                          list]:
+    """One ``StreamingASR`` per audio on ``mux``, all loaded (the mux warms
+    once), then replayed at once from their own threads, unpaced. Returns
+    each session's results, the wall seconds of the replays and each
+    session's language."""
+    import threading
+
+    from audio_rag_tpu_torch.asr.streaming import StreamingASR
+    from audio_rag_tpu_torch.audio.charvoice import SR
+
+    sessions = [StreamingASR(config, stream_cfg, mux=mux) for _ in audios]
+    for s in sessions:
+        s.load()
+    results: list = [None] * len(audios)
+    errors: list = []
+    start = threading.Barrier(len(audios) + 1)
+
+    def run(i):
+        try:
+            start.wait(timeout=60)
+            results[i] = list(sessions[i].process_stream(audios[i], SR))
+        except BaseException as exc:  # re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"session{i}")
+               for i in range(len(audios))]
+    for t in threads:
+        t.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    langs = [s._session_lang for s in sessions]
+    for s in sessions:
+        s.unload()
+    if any(t.is_alive() for t in threads):
+        fail("stream: a session did not finish within 900 s")
+    if errors:
+        raise errors[0]
+    return results, wall, langs
+
+
+@contextlib.contextmanager
+def plain_calls(K, names):
+    """Count calls of the named kernels' plain versions (their wrappers
+    look them up in the module at each call)."""
+    counts = {name: 0 for name in names}
+    saved = {name: getattr(K, name + "_plain") for name in names}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name in names:
+        setattr(K, name + "_plain", spy(name, saved[name]))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name + "_plain", fn)
+
+
+def stream_tiny(torch, K, device: str = "cuda") -> dict:
+    """(a) tiny-synth sessions: the end-to-end replay on ``device`` against
+    the CPU, then four sessions sharing a mux of 4 against their replays
+    alone, in f32 and the int8 profile. Returns launches by path."""
+    from audio_rag_tpu_torch.asr.mux import StreamingMux
+    from audio_rag_tpu_torch.asr.streaming import StreamingConfig
+
+    by_path = {}
+    _, sessions = stream_utterances()
+    for profile in ("fp32", "int8"):
+        tag = f"stream[tiny,{profile}]"
+        got, asr = run_tiny_stream(device, profile)
+        ref, _ = run_tiny_stream("cpu", profile)
+        print(f"{tag} e2e {json.dumps(got['e2e'])}", flush=True)
+        same_stream(f"{tag} e2e against the CPU", got["e2e"], ref["e2e"])
+        for i, (g, r) in enumerate(zip(got["alone"], ref["alone"])):
+            same_stream(f"{tag} session {i} against the CPU", g, r)
+        text = " ".join(r["text"] for r in got["e2e"])
+        heard = [w for w in ("model", "learns", "fast", "stops")
+                 if w in text]
+        if len(heard) < 3:
+            fail(f"{tag}: heard {heard} of the 4 words in {text!r}")
+        mux = StreamingMux(asr, max_batch=4, linger_ms=50.0)
+        try:
+            mux.ensure_ready(16_000, STREAM_TINY["chunk_duration"])
+            K.reset_launches()
+            with plain_calls(K, K.KERNELS) as plain:
+                muxed, wall, _ = run_sessions(
+                    mux, asr.config, StreamingConfig(**STREAM_TINY), sessions)
+            sync(torch, device)
+            launches = launch_counts(K)
+        finally:
+            mux.stop()
+        gaps = [stream_gap(stream_rows(m), a)
+                for m, a in zip(muxed, got["alone"])]
+        print(f"{tag} mux of 4: {mux.chunks_served} chunks in "
+              f"{mux.batches_run} batches, {wall:.2f} s; word-time gaps to "
+              f"the replays alone {gaps}; launches {json.dumps(launches)}; "
+              f"plain calls {json.dumps(plain)}", flush=True)
+        for i, (m, a) in enumerate(zip(muxed, got["alone"])):
+            same_stream(f"{tag} muxed session {i}", stream_rows(m), a)
+        if mux.batches_run >= mux.chunks_served:
+            fail(f"{tag}: the mux batched nothing")
+        if device == "cuda":
+            expect = {FLASH} if profile == "fp32" else PROFILES[profile][1]
+            check_launches(f"{tag} mux", launches, expect)
+            if any(plain[name] for name in expect):
+                fail(f"{tag}: kernels fell back to plain versions: {plain}")
+        by_path[f"{tag} mux"] = launches
+        del asr
+    return by_path
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def stream_shipped(torch, K, device: str = "cuda",
+                   model_size: str = "large-v3",
+                   seconds: float = STREAM_SECONDS) -> dict:
+    """(b) the shipped streaming profile (configs/low_latency.yaml: bf16,
+    int8 cross K/V and decode weights, 3 s chunks, 0.6 s overlap, 40
+    tokens, learned VAD, languages detected per session, word times, the
+    ladder on) with seeded weights: one row's first-step logits at B = 8
+    against B = 1; a lone chunk's dispatch; 8 sessions through one mux of
+    8, with the ladder and without; the pad rows' price. Returns launches
+    by path."""
+    import dataclasses
+
+    import numpy as np
+
+    from audio_rag_tpu_torch.asr.mux import StreamingMux
+    from audio_rag_tpu_torch.asr.streaming import StreamingConfig
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+    from audio_rag_tpu_torch.audio.charvoice import SR
+    from audio_rag_tpu_torch.config import ASRConfig
+    from audio_rag_tpu_torch.ops.mel import HOP_LENGTH
+
+    tag = f"stream[{model_size}]"
+    stream_cfg = StreamingConfig(**STREAM_SHIPPED)
+    config = ASRConfig(model_size=model_size, compute_type="bfloat16",
+                       seed=0, **PROFILES["int8"][0])
+    # the backend a session builds: the decode budget capped by the stream
+    t0 = time.perf_counter()
+    asr = WhisperASR(dataclasses.replace(
+        config, max_decode_tokens=stream_cfg.max_decode_tokens), device)
+    asr.load()
+    sync(torch, device)
+    print(f"{tag} load_s {time.perf_counter() - t0:.2f}", flush=True)
+    audios = [long_speech(seconds, seed=40 + i)
+              for i in range(STREAM_SESSIONS)]
+    chunk = int(stream_cfg.chunk_duration * SR)
+    chunks = [a[:chunk] for a in audios]
+    n = 2 * asr.dims.n_audio_ctx * HOP_LENGTH
+
+    def windows(rows):
+        win = np.zeros((len(rows), n), np.float32)
+        for j, r in enumerate(rows):
+            win[j, : min(len(r), n)] = r[:n]
+        return win.reshape(-1)
+
+    # first-step logits at both dispatch sizes: the kernels against their
+    # plain versions on the same windows, then one row in a batch of 8
+    # against the row alone
+    first = {}
+    for B, rows in ((STREAM_SESSIONS, chunks), (1, chunks[:1])):
+        asr.config.window_batch_size = B
+        wav = windows(rows)
+        first[B] = decode_window(torch, asr, wav)[0][0]
+        with plain_kernels(K):
+            ref = decode_window(torch, asr, wav)[0][0]
+        check_logits(f"{tag} B = {B}", [first[B]], [ref])
+        del ref
+    asr.config.window_batch_size = config.window_batch_size
+    check_logits(f"{tag} row 0 at B = {STREAM_SESSIONS} against B = 1",
+                 [first[STREAM_SESSIONS][:1]], [first[1]])
+    del first
+
+    mux = StreamingMux(asr, max_batch=STREAM_SESSIONS)
+    dispatches: list = []
+    detects: list = []
+    run_batch, detect_rows = mux._run_batch, asr.detect_language_rows
+
+    def timed_batch(payloads, key):
+        sync(torch, device)
+        t = time.perf_counter()
+        out = run_batch(payloads, key)
+        sync(torch, device)
+        dispatches.append({
+            "chunks": len(payloads), "ms": (time.perf_counter() - t) * 1e3,
+            "ladder": asr.config.temperature_fallback,
+            "windows": asr.timings["windows"],
+            "fallback_decodes": asr.timings["fallback_decodes"],
+            "decode_steps": asr.timings["decode_steps"]})
+        return out
+
+    def timed_detect(rows, pad_to=None):
+        sync(torch, device)
+        t = time.perf_counter()
+        out = detect_rows(rows, pad_to)
+        sync(torch, device)
+        detects.append({"rows": len(rows), "pad_to": pad_to,
+                        "ms": (time.perf_counter() - t) * 1e3})
+        return out
+
+    mux._run_batch = timed_batch
+    asr.detect_language_rows = timed_detect
+    by_path: dict = {}
+    try:
+        t0 = time.perf_counter()
+        mux.ensure_ready(SR, stream_cfg.chunk_duration)
+        print(f"{tag} warm-up (B = 1 and {STREAM_SESSIONS}, on the mux's "
+              f"thread) {time.perf_counter() - t0:.2f} s", flush=True)
+
+        def lone():
+            sync(torch, device)
+            t = time.perf_counter()
+            asr.transcribe_chunk_batch([chunks[0]], SR, word_timestamps=True,
+                                       language="en", pad_to=1)
+            sync(torch, device)
+            return (time.perf_counter() - t) * 1e3
+
+        for ladder in (True, False):
+            asr.config.temperature_fallback = ladder
+            setting = "shipped, ladder on" if ladder else "ladder off"
+            print(f"{tag} lone chunk, B = 1 ({setting}): dispatch ms "
+                  f"{mux.call(lone).result():.1f}", flush=True)
+
+            path = f"{tag} sessions ({setting})"
+            d0, n0 = len(dispatches), len(detects)
+            served0, batches0 = mux.chunks_served, mux.batches_run
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            with plain_calls(K, K.KERNELS) as plain:
+                results, wall, langs = run_sessions(mux, config, stream_cfg,
+                                                    audios)
+            sync(torch, device)
+            launches = launch_counts(K)
+            runs, dets = dispatches[d0:], detects[n0:]
+            lat = sorted(r.processing_time_ms for rs in results for r in rs)
+            served = mux.chunks_served - served0
+            batches = mux.batches_run - batches0
+            b8 = [d["ms"] for d in runs if d["chunks"] > 1]
+            b1 = [d["ms"] for d in runs if d["chunks"] == 1]
+            out = {
+                "card": card_line() if device == "cuda" else device,
+                "sessions": len(audios), "seconds_each": seconds,
+                "wall_s": wall, "chunks_served": served,
+                "batches_run": batches,
+                "mean_chunks_a_batch": served / max(batches, 1),
+                "dispatch_ms_B8": b8, "dispatch_ms_B1": b1,
+                "mean_dispatch_ms_B8": (sum(b8) / len(b8) if b8 else None),
+                "submit_to_result_ms_p50": float(np.percentile(lat, 50)),
+                "submit_to_result_ms_p95": float(np.percentile(lat, 95)),
+                "detect_dispatches": dets,
+                "session_languages": langs,
+                "fallback_decodes_a_dispatch": [d["fallback_decodes"]
+                                                for d in runs],
+                "launches": launches, "plain_calls": plain,
+                "launches_a_dispatch": {
+                    name: launches[name] / max(len(runs), 1)
+                    for name in (FLASH, Q8W, CROSS8)},
+                "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                if device == "cuda" else None)}
+            print(path, json.dumps(out), flush=True)
+            texts = [r.text for rs in results for r in rs]
+            if served != sum(len(rs) for rs in results) or not lat:
+                fail(f"{path}: {served} chunks served for "
+                     f"{sum(len(rs) for rs in results)} results")
+            if device == "cuda":
+                check_launches(path, launches, PROFILES["int8"][1],
+                               asr.dims.n_audio_layer
+                               * (len(runs) + len(dets)))
+                if any(plain.values()):
+                    fail(f"{path}: plain versions ran: {plain}")
+            if not any(texts):
+                fail(f"{path}: every chunk came back empty")
+            by_path[path] = launches
+
+        # the pad rows' price: 2 chunks at B = 8 against B = 2, ladder off,
+        # every call on the mux's thread (cuBLAS handles are per thread)
+        pair = chunks[:2]
+
+        def at(B):
+            sync(torch, device)
+            t = time.perf_counter()
+            asr.transcribe_chunk_batch(pair, SR, word_timestamps=True,
+                                       language="en", pad_to=B)
+            sync(torch, device)
+            return {"B": B, "ms": (time.perf_counter() - t) * 1e3,
+                    **{k: asr.timings[k] for k in (
+                        "decode_steps", "windows", "fallback_decodes",
+                        "vad_s", "mel_s", "encode_s", "decode_s",
+                        "align_s")}}
+
+        # the mux warmed B = 8; the first call at B = 2 picks its GEMMs
+        warm = mux.call(lambda: at(2)).result()
+        runs = [mux.call(lambda B=B: at(B)).result()
+                for B in (STREAM_SESSIONS, 2, 2, STREAM_SESSIONS,
+                          STREAM_SESSIONS, 2)]
+        for r in runs:
+            r["ms_a_step"] = r["ms"] / max(r["decode_steps"], 1)
+        ms = {B: [r["ms"] for r in runs if r["B"] == B]
+              for B in (2, STREAM_SESSIONS)}
+        same_steps = len({r["decode_steps"] for r in runs}) == 1
+        price = (float(np.median(ms[STREAM_SESSIONS]))
+                 / float(np.median(ms[2])) - 1.0)
+        if not same_steps:
+            verdict = "the decode steps differ: compare ms_a_step"
+        elif price >= 0.0:
+            verdict = (f"B = 2 no slower than B = 8 (medians) at equal "
+                       f"decode steps: the pad rows cost {price:+.3f}")
+        else:
+            verdict = ("B = 2 slower than B = 8 (medians) at equal decode "
+                       "steps: unresolved")
+        print(f"{tag} pad rows (ladder off, in turns, on the mux's "
+              f"thread)", json.dumps({"warm_up_B2": warm, "runs": runs,
+                                      "verdict": verdict}), flush=True)
+    finally:
+        mux.stop()
+    return by_path
+
+
+def stream_queries(torch, K, device: str = "cuda") -> dict:
+    """(c) 32 single queries from their own threads through a
+    ``QueryCoalescer`` on the eval-small query spine: the rankings of one
+    direct ``AudioRAG.query_batch``, in fewer batches than queries, and no
+    kernel launched. Returns the launches."""
+    import threading
+
+    import numpy as np
+
+    from audio_rag_tpu_torch.config import (
+        AudioRAGConfig, EmbeddingConfig, RerankingConfig, RetrievalConfig)
+    from audio_rag_tpu_torch.engine.query_coalescer import QueryCoalescer
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+
+    rag = AudioRAG(AudioRAGConfig(
+        embedding=EmbeddingConfig(model="eval-small"),
+        retrieval=RetrievalConfig(capacity_step=128),
+        reranking=RerankingConfig(model="eval-small"), device=device))
+    chunks = spine_corpus()
+    rag.store.add(chunks, rag.embedder.embed([c.text for c in chunks]),
+                  "query")
+    rng = np.random.default_rng(23)
+    queries = [" ".join(rng.choice(SPINE_WORDS, 3).tolist())
+               for _ in range(STREAM_QUERIES)]
+    K.reset_launches()
+    ref = rag.query_batch(queries, collection="query")
+    coalescer = QueryCoalescer(rag)
+    got: list = [None] * len(queries)
+    start = threading.Barrier(len(queries))
+
+    def ask(i):
+        start.wait(timeout=60)
+        got[i] = coalescer.query(queries[i], collection="query")
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(queries))]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        coalescer.stop()
+    wall = time.perf_counter() - t0
+    sync(torch, device)
+    launches = launch_counts(K)
+    bad = [q for q, g, r in zip(queries, got, ref) if g is None or
+           not same_ranking([(x.chunk_id, x.score) for x in g.results],
+                            [(x.chunk_id, x.score) for x in r.results])]
+    print("stream[queries]", json.dumps({
+        "queries": len(queries), "batches_run": coalescer.batches_run,
+        "requests_served": coalescer.requests_served, "wall_s": wall,
+        "differ_from_query_batch": bad, "launches": launches}), flush=True)
+    if bad:
+        fail(f"stream[queries]: coalesced rankings differ from query_batch "
+             f"for {bad}")
+    if coalescer.batches_run >= len(queries):
+        fail("stream[queries]: the coalescer batched nothing")
+    if any(launches.values()):
+        fail(f"stream[queries]: kernels launched on the query half: "
+             f"{launches}")
+    return {"stream[queries]": launches}
+
+
+def phase_stream(torch, K, device: str = "cuda") -> dict:
+    """Live transcription: (a) :func:`stream_tiny`, (b)
+    :func:`stream_shipped` at large-v3, (c) :func:`stream_queries`.
+    Returns launches by path."""
+    t0 = time.perf_counter()
+    by_path = stream_tiny(torch, K, device)
+    if device == "cuda":
+        free_card(torch)
+    by_path.update(stream_shipped(torch, K, device))
+    if device == "cuda":
+        free_card(torch)
+    by_path.update(stream_queries(torch, K, device))
+    print(f"stream_s {time.perf_counter() - t0:.1f}", flush=True)
+    return by_path
+
+
 def large_v3_config(device: str, profile: str, window_batch: int,
                     **asr_fields):
     """The large-v3 paths' config: greedy at temperature 0 in English, as
@@ -3266,10 +3821,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
-                            "answer,full,full_kv4,capacity,beam",
+                            "answer,stream,full,full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
-                         "diarize,fallback,query,answer,full,full_kv4,"
-                         "capacity,beam")
+                         "diarize,fallback,query,answer,stream,full,"
+                         "full_kv4,capacity,beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -3328,6 +3883,9 @@ def main() -> None:
         free_card(torch)
     if "answer" in phases:
         by_path.update(phase_answer(torch, K))
+        free_card(torch)
+    if "stream" in phases:
+        by_path.update(phase_stream(torch, K))
         free_card(torch)
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)

@@ -14,6 +14,7 @@ Both generators run the ``test`` preset with the JAX package's weights
 at a near-tie: the teacher-forced logits of the shared prefix put the two
 tokens within 0.05 of the best (the JAX test's arbiter)."""
 
+import threading
 import time
 
 import jax
@@ -207,6 +208,30 @@ def test_tokens_generated_counter(batcher):
     before = batcher.tokens_generated
     batcher.generate("tango uniform victor", max_tokens=7)
     assert 1 <= batcher.tokens_generated - before <= 7
+
+
+def test_counters_include_a_request_when_it_resolves(batcher, monkeypatch):
+    """``requests_served`` and ``tokens_generated`` count a request before
+    its future resolves, so a caller that reads them right after its
+    answer sees its own request. The admission waits for a gate until a
+    done-callback (run where the future resolves) is in place."""
+    gate = threading.Event()
+    prefill = cont.llm_prefill_slots
+
+    def gated(*args, **kw):
+        assert gate.wait(timeout=30)
+        return prefill(*args, **kw)
+
+    monkeypatch.setattr(cont, "llm_prefill_slots", gated)
+    served, tokens = batcher.requests_served, batcher.tokens_generated
+    seen = []
+    fut = batcher.submit("whiskey xray yankee", max_tokens=6)
+    fut.add_done_callback(lambda _: seen.append(
+        (batcher.requests_served, batcher.tokens_generated)))
+    gate.set()
+    fut.result(timeout=120)
+    assert len(seen) == 1 and seen[0][0] == served + 1
+    assert 1 <= seen[0][1] - tokens <= 6
 
 
 def test_a_failed_segment_fails_every_live_request(generator, monkeypatch):

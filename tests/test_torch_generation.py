@@ -12,6 +12,7 @@ continuous batcher and the speculative program now build and answer), and
 the new modules import nothing of JAX."""
 
 import ast
+import threading
 from pathlib import Path
 
 import jax
@@ -39,7 +40,8 @@ from audio_rag_tpu_torch.config import (
 )
 from audio_rag_tpu_torch.core.exceptions import ConfigError, GenerationError
 from audio_rag_tpu_torch.core.types import AudioChunk
-from audio_rag_tpu_torch.engine.scheduler import ScheduledGenerator
+from audio_rag_tpu_torch.engine.scheduler import (
+    GenerationScheduler, ScheduledGenerator)
 from audio_rag_tpu_torch.expansion.hyde import HYDE_PROMPT, HyDEExpander
 from audio_rag_tpu_torch.generation import create_generator
 from audio_rag_tpu_torch.generation.fake import FakeGenerator
@@ -304,6 +306,48 @@ def test_empty_batch_window_error_and_stream(greedy_pair, prompts):
         gen.last_token_ids[0]).strip()
     assert all(len(c.split()) <= 8 and c.endswith(" ") for c in chunks)
     assert len(chunks) >= 2
+
+
+class _GatedGenerator:
+    """``generate_batch`` waits for ``gate``, then echoes its prompts in
+    capitals, or raises."""
+
+    def __init__(self, fail: bool):
+        self.fail = fail
+        self.gate = threading.Event()
+
+    def generate_batch(self, prompts, **kw):
+        assert self.gate.wait(timeout=30)
+        if self.fail:
+            raise GenerationError("the wave failed")
+        return [p.upper() for p in prompts]
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["answer", "error"])
+def test_scheduler_counts_a_wave_before_its_callers_wake(fail):
+    """A request's future resolves only once its wave is counted, so a
+    caller that reads ``batches_run``/``requests_served`` right after its
+    answer (or its error) sees its own wave. A done-callback runs where
+    the future resolves and reads the counters at that instant."""
+    gen = _GatedGenerator(fail)
+    sched = GenerationScheduler(gen, max_wait_ms=1.0)
+    try:
+        seen = []
+        futures = [sched.submit(p) for p in ("alpha", "bravo")]
+        for f in futures:
+            f.add_done_callback(lambda _: seen.append(
+                (sched.batches_run, sched.requests_served)))
+        gen.gate.set()
+        if fail:
+            for f in futures:
+                with pytest.raises(GenerationError, match="the wave failed"):
+                    f.result(timeout=30)
+        else:
+            assert [f.result(timeout=30) for f in futures] == ["ALPHA",
+                                                               "BRAVO"]
+        assert seen == [(1, 2), (1, 2)]
+    finally:
+        sched.stop()
 
 
 def test_scheduler_coalesces_concurrent_requests(greedy_pair, prompts):

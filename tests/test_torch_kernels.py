@@ -731,3 +731,110 @@ def test_kernel_library_name_covers_defines(defines):
     name = "flash_attention"
     assert K._lib_path(name, defines) != K._lib_path(name)
     assert K._lib_path(name, defines) == K._lib_path(name, tuple(defines))
+
+
+# -- builds, loads and counters under threads -----------------------------------
+
+class _FakeCompiler:
+    """Stands in for nvcc: writes the ``-o`` file after a pause that lets
+    every thread reach the build, and counts the compiles per source."""
+
+    def __init__(self):
+        self.compiles: dict[str, int] = {}
+
+    def __call__(self, cmd, **kw):
+        import time
+
+        src = cmd[-1].rsplit("/", 1)[-1]
+        out = cmd[cmd.index("-o") + 1]
+        self.compiles[src] = self.compiles.get(src, 0) + 1
+
+        class Proc:
+            returncode = 0
+
+            def communicate(self):
+                time.sleep(0.05)
+                with open(out, "wb") as f:
+                    f.write(b"\0")
+                return "", None
+
+        return Proc()
+
+
+class _FakeLibrary:
+    def __getattr__(self, fn_name):
+        fn = lambda *a: 0  # noqa: E731
+        setattr(self, fn_name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("call", ["load", "_entry"])
+def test_kernels_build_and_load_once_under_threads(tmp_path, monkeypatch,
+                                                   call):
+    """8 threads reach every kernel's first use at once: each library is
+    compiled once and opened once."""
+    import threading
+
+    compiler, opened = _FakeCompiler(), []
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(K, "_libs", {})
+    monkeypatch.setattr(K, "_lib_files", {}, raising=False)
+    monkeypatch.setattr(K, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(K.subprocess, "Popen", compiler)
+    monkeypatch.setattr(K.ctypes, "CDLL",
+                        lambda path: opened.append(path) or _FakeLibrary())
+    start, errors = threading.Barrier(8), []
+
+    def worker():
+        try:
+            start.wait(timeout=10)
+            for name in K.KERNELS:
+                getattr(K, call)(name)
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert compiler.compiles == {k.source: 1 for k in K.KERNELS.values()}
+    assert sorted(opened) == sorted(str(K._lib_path(n)) for n in K.KERNELS)
+    assert not list(tmp_path.glob("*.tmp"))
+
+
+def test_launch_counter_loses_no_update_under_threads(monkeypatch):
+    """8 threads count 200 launches each of one kernel: the total is
+    exact even when a thread switch falls inside the increment."""
+    import sys
+    import threading
+    import time
+
+    class SlowDict(dict):
+        def __getitem__(self, key):
+            value = dict.__getitem__(self, key)
+            time.sleep(0)  # give the other threads the interpreter here
+            return value
+
+    monkeypatch.setattr(K, "LAUNCHES", SlowDict({n: 0 for n in K.KERNELS}))
+    start = threading.Barrier(8)
+
+    def worker():
+        start.wait(timeout=10)
+        for _ in range(200):
+            K._launched("matmul_q8w", 0)
+
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(saved)
+    assert not any(t.is_alive() for t in threads)
+    assert K.LAUNCHES["matmul_q8w"] == 1600

@@ -165,13 +165,15 @@ def no_cuda():
 
 
 def test_entry_points_refuse_a_missing_card(no_cuda):
+    from audio_rag_tpu_torch.asr.streaming import StreamingASR
     from audio_rag_tpu_torch.asr.whisper import WhisperASR
     from audio_rag_tpu_torch.device import resolve_device
     from audio_rag_tpu_torch.embeddings.bge import BGEM3Embedder
     from audio_rag_tpu_torch.retrieval.store import VectorStore
 
     for make in (lambda: AudioRAG(), lambda: AudioRAG(AudioRAGConfig()),
-                 lambda: WhisperASR(), lambda: BGEM3Embedder(),
+                 lambda: WhisperASR(), lambda: StreamingASR(),
+                 lambda: BGEM3Embedder(),
                  lambda: VectorStore(), lambda: resolve_device("cuda:0")):
         with pytest.raises(ConfigError, match="CUDA is not available"):
             make()
