@@ -5,7 +5,9 @@ device; the streaming mux's host tests drive it.
 
 It has no batched path: :meth:`FakeASR.transcribe_chunk_batch` is the
 per-chunk loop that the JAX package's ``BaseASR`` gives such a backend
-(``core/base.py:107-125``), a per-chunk ``language`` list included.
+(``core/base.py:107-125``), a per-chunk ``language`` list included, and
+:meth:`FakeASR.transcribe_with_words` is ``transcribe`` with word times,
+as ``BaseASR`` gives it (``core/base.py:101``).
 """
 
 from __future__ import annotations
@@ -65,6 +67,11 @@ class FakeASR:
             idx += len(words_txt)
             t = end
         return segments
+
+    def transcribe_with_words(self, audio: np.ndarray | str,
+                              sample_rate: int | None = None,
+                              **kw: Any) -> list[TranscriptSegment]:
+        return self.transcribe(audio, sample_rate, word_timestamps=True, **kw)
 
     def transcribe_chunk_batch(self, chunks: Iterable[np.ndarray],
                                sample_rate: int | None = None,

@@ -65,7 +65,7 @@ from audio_rag_tpu_torch.asr.word_timing import attention_to_word_times
 from audio_rag_tpu_torch.audio.io import decode_audio
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
 from audio_rag_tpu_torch.config import ASRConfig
-from audio_rag_tpu_torch.core.exceptions import TranscriptionError
+from audio_rag_tpu_torch.core.exceptions import ConfigError, TranscriptionError
 from audio_rag_tpu_torch.core.types import TranscriptSegment, Word
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.models.whisper import (
@@ -87,6 +87,7 @@ from audio_rag_tpu_torch.models.whisper import (
 )
 from audio_rag_tpu_torch.ops import random as jrandom
 from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_batch
+from audio_rag_tpu_torch.utils.decorators import timed
 from audio_rag_tpu_torch.weights import whisper_params
 
 log = logging.getLogger(__name__)
@@ -157,6 +158,11 @@ class WhisperASR:
     def load(self) -> None:
         if self.is_loaded:
             return
+        if self.config.checkpoint_path:
+            raise ConfigError(
+                "asr.checkpoint_path: converted Whisper checkpoints are not "
+                "ported (no converted checkpoint is in the repository)",
+                context={"checkpoint_path": self.config.checkpoint_path})
         tree = None
         if self.config.model_size == "tiny-synth":
             tree = load_npz_asset(ASSETS_DIR / "asr_tiny_synth.npz")
@@ -189,6 +195,7 @@ class WhisperASR:
             cap = min(cap, self.config.max_decode_tokens)
         return cap
 
+    @timed
     def transcribe(self, audio: np.ndarray | str,
                    sample_rate: int | None = None,
                    word_timestamps: bool = False,
@@ -292,6 +299,7 @@ class WhisperASR:
         return [int(v) for v in lang[:R].tolist()]
 
     @torch.inference_mode()
+    @timed
     def transcribe_chunk_batch(self, chunks: list[np.ndarray],
                                sample_rate: int | None = None,
                                word_timestamps: bool = False,

@@ -24,6 +24,7 @@ import math
 from audio_rag_tpu_torch.config import ContextualConfig
 from audio_rag_tpu_torch.core.types import AudioChunk
 from audio_rag_tpu_torch.text.tokenizer import norm_tokens
+from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["CONTEXT_PROMPT", "ContextualProcessor", "extractive_headers"]
 
@@ -98,6 +99,7 @@ class ContextualProcessor:
             start=chunk.start, end=chunk.end,
             chunk=_clip_chunk_text(chunk.text))
 
+    @timed
     def process_chunks(self, chunks: list[AudioChunk]) -> list[AudioChunk]:
         """``chunks`` with headers (unchanged when disabled, or with the
         llm backend and no generator)."""

@@ -7,12 +7,15 @@ compare directly.
 * Embeddings carry ``numpy.ndarray`` (host) arrays; device placement is
   owned by the embedder / vector store, never by the data model.
 * ``SparseVector`` stores parallel int32/float32 arrays rather than a dict.
+* ``to_dict``/``from_dict`` give and take the JAX package's dicts, key for
+  key (ingest checkpoints and resume carry them); ``chunk_id`` and
+  ``metadata`` survive a round trip.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 
@@ -36,6 +39,21 @@ class Word:
     probability: float = 1.0
     speaker: str | None = None
 
+    @property
+    def duration(self) -> float:
+        return self.end - self.start
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"text": self.text, "start": self.start, "end": self.end,
+                "probability": self.probability, "speaker": self.speaker}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "Word":
+        return cls(text=d["text"], start=float(d["start"]),
+                   end=float(d["end"]),
+                   probability=float(d.get("probability", 1.0)),
+                   speaker=d.get("speaker"))
+
 
 @dataclass
 class TranscriptSegment:
@@ -53,6 +71,20 @@ class TranscriptSegment:
     def duration(self) -> float:
         return self.end - self.start
 
+    def to_dict(self) -> dict[str, Any]:
+        return {"text": self.text, "start": self.start, "end": self.end,
+                "speaker": self.speaker,
+                "words": [w.to_dict() for w in self.words],
+                "language": self.language, "avg_logprob": self.avg_logprob}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "TranscriptSegment":
+        return cls(text=d["text"], start=float(d["start"]),
+                   end=float(d["end"]), speaker=d.get("speaker"),
+                   words=[Word.from_dict(w) for w in d.get("words", [])],
+                   language=d.get("language"),
+                   avg_logprob=d.get("avg_logprob"))
+
 
 @dataclass
 class AudioChunk:
@@ -64,6 +96,22 @@ class AudioChunk:
     speaker: str | None = None
     chunk_id: str | None = None
     metadata: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def duration(self) -> float:
+        return self.end - self.start
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"text": self.text, "start": self.start, "end": self.end,
+                "speaker": self.speaker, "chunk_id": self.chunk_id,
+                "metadata": dict(self.metadata)}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "AudioChunk":
+        return cls(text=d["text"], start=float(d["start"]),
+                   end=float(d["end"]), speaker=d.get("speaker"),
+                   chunk_id=d.get("chunk_id"),
+                   metadata=dict(d.get("metadata", {})))
 
 
 class SparseVector:
@@ -94,6 +142,16 @@ class SparseVector:
                 idx, val = uniq.astype(np.int32), merged
         self.indices = idx
         self.values = val
+
+    @classmethod
+    def from_dict(cls, d: Mapping[int, float]) -> "SparseVector":
+        if not d:
+            return cls()
+        items = sorted(d.items())
+        return cls([k for k, _ in items], [v for _, v in items])
+
+    def to_dict(self) -> dict[int, float]:
+        return {int(i): float(v) for i, v in zip(self.indices, self.values)}
 
     @property
     def nnz(self) -> int:
@@ -135,3 +193,11 @@ class RetrievalResult:
         return {"text": self.text, "score": self.score, "start": self.start,
                 "end": self.end, "speaker": self.speaker,
                 "chunk_id": self.chunk_id, "metadata": dict(self.metadata)}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "RetrievalResult":
+        return cls(text=d["text"], score=float(d["score"]),
+                   start=float(d.get("start", 0.0)),
+                   end=float(d.get("end", 0.0)), speaker=d.get("speaker"),
+                   chunk_id=d.get("chunk_id"),
+                   metadata=dict(d.get("metadata", {})))

@@ -20,6 +20,7 @@ from audio_rag_tpu_torch.diarization.clustering import (
     ClusteringDiarizer,
     windows_to_segments,
 )
+from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["AHCDiarizer", "ahc_cluster"]
 
@@ -70,6 +71,7 @@ class AHCDiarizer(ClusteringDiarizer):
     """The AHC engine: :class:`ClusteringDiarizer`'s loading, VAD and
     embeddings with its own clustering and overlap pass."""
 
+    @timed
     def diarize(self, audio: np.ndarray | str,
                 sample_rate: int | None = None,
                 num_speakers: int | None = None) -> list[TranscriptSegment]:

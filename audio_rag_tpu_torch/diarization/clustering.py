@@ -31,6 +31,7 @@ from audio_rag_tpu_torch.models.speaker import (
     speaker_embed,
 )
 from audio_rag_tpu_torch.ops.mel import log_mel_batch
+from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["ClusteringDiarizer", "window_embeddings", "windows_to_segments"]
 
@@ -146,6 +147,7 @@ class ClusteringDiarizer:
         self.timings["windows"] = len(starts)
         return spans, starts, emb
 
+    @timed
     def diarize(self, audio: np.ndarray | str,
                 sample_rate: int | None = None,
                 num_speakers: int | None = None) -> list[TranscriptSegment]:

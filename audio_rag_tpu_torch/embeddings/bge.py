@@ -14,12 +14,14 @@ import torch
 
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
 from audio_rag_tpu_torch.config import EmbeddingConfig
+from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import EmbeddingResult, SparseVector
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.models.bert import BERT_PRESETS, BertDims
 from audio_rag_tpu_torch.models.bgem3 import bgem3_forward, init_bgem3
 from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer, pad_batch
 from audio_rag_tpu_torch.weights import bgem3_params
+from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["BGEM3Embedder"]
 
@@ -49,6 +51,11 @@ class BGEM3Embedder:
     def load(self) -> None:
         if self.is_loaded:
             return
+        if self.config.checkpoint_path:
+            raise ConfigError(
+                "embedding.checkpoint_path: converted BGE-M3 checkpoints are "
+                "not ported (no converted checkpoint is in the repository)",
+                context={"checkpoint_path": self.config.checkpoint_path})
         tree = None
         if self.config.model == "eval-small":
             tree = load_npz_asset(ASSETS_DIR / "retr_embedder_small.npz")
@@ -60,6 +67,7 @@ class BGEM3Embedder:
                                       device=self.device,
                                       dtype=torch.bfloat16)
 
+    @timed
     def embed(self, texts: list[str]) -> list[EmbeddingResult]:
         if not self.is_loaded:
             self.load()

@@ -1,0 +1,108 @@
+"""Multilingual-E5 embedder of the port (counterpart of
+``audio_rag_tpu/embeddings/e5.py``): the XLM-R encoder of
+:mod:`audio_rag_tpu_torch.models.bert` with E5's conventions — texts
+embed as ``"passage: …"`` and queries as ``"query: …"``, the states are
+mean-pooled over real tokens in f32 and L2-normalized; dense only.
+
+Model "test" keeps the tiny ``test`` preset, any other name XLM-R large
+shapes; the weights are seeded (``seed``), as the JAX embedder starts
+without files, and stored in bf16. Batches and lengths pad to the same
+power-of-two buckets as the JAX program (−1 padding doubles as the mask).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from audio_rag_tpu_torch.config import EmbeddingConfig
+from audio_rag_tpu_torch.core.exceptions import ConfigError
+from audio_rag_tpu_torch.core.types import EmbeddingResult
+from audio_rag_tpu_torch.device import resolve_device
+from audio_rag_tpu_torch.embeddings.bge import _bucket
+from audio_rag_tpu_torch.models.bert import (
+    BERT_PRESETS,
+    BertDims,
+    bert_encode,
+    init_bert,
+)
+from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, pad_batch
+from audio_rag_tpu_torch.utils.decorators import timed
+
+__all__ = ["E5Embedder", "e5_forward"]
+
+
+def e5_forward(params, dims: BertDims, packed: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, T), −1 at padding → unit mean-pooled vectors (B, d)
+    in f32."""
+    mask = (packed >= 0).long()
+    ids = torch.where(mask.bool(), packed, torch.full_like(packed,
+                                                           dims.pad_id))
+    h = bert_encode(params, dims, ids, mask, torch.bfloat16)
+    m = mask.float()[..., None]
+    pooled = (h.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1),
+                                                      min=1e-9)
+    return pooled / torch.clamp(
+        torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-9)
+
+
+class E5Embedder:
+    def __init__(self, config: EmbeddingConfig | None = None,
+                 device: str | torch.device = "cuda"):
+        self.config = config or EmbeddingConfig(backend="multilingual-e5")
+        self.device = resolve_device(device)
+        preset = "test" if self.config.model == "test" else "xlmr-large"
+        self.dims: BertDims = BERT_PRESETS[preset]
+        self._params = None
+        self._tok = get_tokenizer(self.dims.vocab)
+
+    @property
+    def is_loaded(self) -> bool:
+        return self._params is not None
+
+    def load(self) -> None:
+        if self.is_loaded:
+            return
+        if self.config.checkpoint_path:
+            raise ConfigError(
+                "embedding.checkpoint_path: converted E5 checkpoints are "
+                "not ported (no converted checkpoint is in the repository)",
+                context={"checkpoint_path": self.config.checkpoint_path})
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.config.seed)
+        self._params = init_bert(self.dims, gen, self.device,
+                                 torch.bfloat16)
+
+    @torch.inference_mode()
+    def _embed_prefixed(self, texts: list[str]) -> list[EmbeddingResult]:
+        seqs = [self._tok.encode(t)[: self.config.max_length] for t in texts]
+        T = _bucket(max(len(s) for s in seqs), 16, self.config.max_length)
+        B = _bucket(len(seqs), 1, self.config.batch_size)
+        ids, _ = pad_batch(seqs, T, -1)
+        if len(seqs) < B:
+            ids = np.pad(ids, ((0, B - len(seqs)), (0, 0)),
+                         constant_values=-1)
+        packed = torch.from_numpy(ids).long().to(self.device)
+        dense = e5_forward(self._params, self.dims, packed).cpu().numpy()
+        return [EmbeddingResult(dense=dense[i], sparse=None, text=t)
+                for i, t in enumerate(texts)]
+
+    @timed
+    def embed(self, texts: list[str]) -> list[EmbeddingResult]:
+        if not texts:
+            return []
+        self.load()
+        out: list[EmbeddingResult] = []
+        bs = self.config.batch_size
+        prefixed = [f"passage: {t}" for t in texts]
+        for i in range(0, len(prefixed), bs):
+            out.extend(self._embed_prefixed(prefixed[i: i + bs]))
+        for r, original in zip(out, texts):
+            r.text = original
+        return out
+
+    def embed_query(self, query: str) -> EmbeddingResult:
+        self.load()
+        r = self._embed_prefixed([f"query: {query}"])[0]
+        r.text = query
+        return r

@@ -39,6 +39,7 @@ from audio_rag_tpu_torch.ops.similarity import (
     topk_with_mask,
 )
 from audio_rag_tpu_torch.text.tokenizer import pad_batch
+from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["QueryEngine"]
 
@@ -153,6 +154,7 @@ class QueryEngine:
 
     # -- public API -----------------------------------------------------------
     @torch.inference_mode()
+    @timed
     def query_batch(self, queries: list[str], top_k: int = 5,
                     search_type: str = "hybrid", initial_k: int = 20,
                     rerank: bool = True) -> list[list[RetrievalResult]]:

@@ -46,6 +46,7 @@ from audio_rag_tpu_torch.models.llm import (
 )
 from audio_rag_tpu_torch.ops import random as jrandom
 from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, load_reverse_map
+from audio_rag_tpu_torch.utils.decorators import timed
 from audio_rag_tpu_torch.weights import load_llm_small
 
 __all__ = ["LLMGenerator"]
@@ -119,6 +120,7 @@ class LLMGenerator:
     def check_availability(self) -> bool:
         return self.is_loaded
 
+    @timed
     def generate(self, prompt: str, system: str | None = None,
                  max_tokens: int | None = None,
                  temperature: float | None = None) -> str:
@@ -126,6 +128,7 @@ class LLMGenerator:
                                    max_tokens=max_tokens,
                                    temperature=temperature)[0]
 
+    @timed
     def generate_batch(self, prompts: list[str], system: str | None = None,
                        max_tokens: int | None = None,
                        temperature: float | None = None) -> list[str]:

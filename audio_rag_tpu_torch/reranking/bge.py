@@ -29,6 +29,7 @@ from audio_rag_tpu_torch.models.cross_encoder import (
 )
 from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer, pad_batch
 from audio_rag_tpu_torch.weights import cross_encoder_params
+from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["BGEReranker"]
 
@@ -124,6 +125,7 @@ class BGEReranker:
         return self._score(seqs, _bucket(n, 1, 256) if n <= 256
                            else -(-n // 512) * 512)
 
+    @timed
     def rerank(self, query: str, results: list[RetrievalResult],
                top_k: int | None = None) -> list[RetrievalResult]:
         k = top_k or self.config.top_k

@@ -40,6 +40,8 @@ from audio_rag_tpu_torch.core.types import (
 )
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.ops.similarity import hybrid_search, rrf_prefetch
+from audio_rag_tpu_torch.text.tokenizer import norm_tokens
+from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["VectorStore", "Collection"]
 
@@ -76,6 +78,8 @@ class Collection:
     #: identity of this collection for caches kept outside it (the query
     #: engine's reranker tokens): a recreated collection gets a new one
     uid: str = field(default_factory=lambda: uuid.uuid4().hex)
+    #: (count, per-term document frequency) of ``VectorStore.term_stats``
+    term_stats_cache: tuple[int, dict[str, int]] | None = None
 
     def ensure_capacity(self, n_new: int, step: int) -> None:
         needed = self.count + n_new
@@ -163,6 +167,7 @@ class VectorStore:
     def collection_exists(self, collection: str | None = None) -> bool:
         return self._coll(collection) is not None
 
+    @timed
     def add(self, chunks: list[AudioChunk], embeddings: list[EmbeddingResult],
             collection: str | None = None) -> int:
         if len(chunks) != len(embeddings):
@@ -246,6 +251,7 @@ class VectorStore:
         return tuple(cols), torch.tensor(codes, dtype=torch.int32,
                                          device=self.device)
 
+    @timed
     def search(self, query_embedding: EmbeddingResult, top_k: int = 5,
                search_type: str = "hybrid", collection: str | None = None,
                metadata_filter: dict[str, Any] | None = None,
@@ -307,6 +313,24 @@ class VectorStore:
     def count(self, collection: str | None = None) -> int:
         coll = self._coll(collection)
         return 0 if coll is None else coll.count
+
+    def term_stats(self, collection: str | None = None
+                   ) -> tuple[int, dict[str, int]]:
+        """(chunks, per-term document frequency) over the collection's
+        chunk texts, the statistics PRF expansion weights its terms with;
+        host-side, cached until the collection's count changes."""
+        coll = self._coll(collection)
+        if coll is None:
+            return 0, {}
+        cached = coll.term_stats_cache
+        if cached is not None and cached[0] == coll.count:
+            return cached
+        df: dict[str, int] = {}
+        for p in coll.payloads[: coll.count]:
+            for w in set(norm_tokens(p["text"])):
+                df[w] = df.get(w, 0) + 1
+        coll.term_stats_cache = (coll.count, df)
+        return coll.term_stats_cache
 
     def collection_info(self, collection: str | None = None
                         ) -> dict[str, Any]:

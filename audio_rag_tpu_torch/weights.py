@@ -29,6 +29,7 @@ from audio_rag_tpu_torch.models.whisper import WhisperDims
 __all__ = [
     "whisper_spec",
     "bgem3_spec",
+    "e5_params",
     "cross_encoder_spec",
     "speaker_spec",
     "vad_spec",
@@ -254,6 +255,14 @@ def bgem3_params(tree: dict, dims: BertDims,
                  dtype: torch.dtype = torch.float32) -> dict:
     """A BGE-M3 tree (``init_bgem3`` layout) → tensors of ``dtype``."""
     return _float_tree(tree, bgem3_spec(dims), "bgem3", device, dtype)
+
+
+def e5_params(tree: dict, dims: BertDims,
+              device: str | torch.device = "cpu",
+              dtype: torch.dtype = torch.float32) -> dict:
+    """An E5 tree (the bare ``init_bert`` layout) → tensors of ``dtype``."""
+    return _float_tree({"bert": tree}, _bert_spec(dims), "e5", device,
+                       dtype)["bert"]
 
 
 def cross_encoder_params(tree: dict, dims: BertDims,

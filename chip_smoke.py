@@ -159,13 +159,35 @@ subset):
               their own threads through a ``QueryCoalescer`` on the query
               spine: the rankings of one direct ``query_batch``, in fewer
               batches, no kernel launched.
+13. profiles — configs/production.yaml as a deployment loads it:
+              ``AudioRAG.from_config(env="production")`` with the run's own
+              settings as ``AUDIO_RAG__`` variables (the store in the
+              phase's directory, 32 decode tokens, 64 answer tokens,
+              contextual headers on), its values checked (large-v3, bf16,
+              window batch 16, int8 cross K/V and decode weights, the
+              ladder on, the language detected, an int8 corpus,
+              llama-3.2-3b with decoder_int8 and speculative_k 8; seeded
+              weights); three 30 s files through ``ingest_batch`` (diarized,
+              3b headers, stage-grouped) and through the per-file ``ingest``
+              loop: the same chunks and the same top 5 for three queries;
+              the loop's first file checkpointed and resumed from
+              "aligned" with an ASR that raises; ``status()`` (collections,
+              the ``@timed`` counts, every ``ingest.*`` span) and
+              ``clear_collection``. Rows 1-3 must launch (every flash call
+              on wgmma, ``matmul_q8w`` at Whisper's and 3b's widths), rows
+              4-7 and every plain version not at all. Prints each file's
+              stage seconds, the batch's wall time against the loop's and
+              the peak memory beside the card's name and power limit.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
 the script fails without it, so the word-time DTW of every ingest runs in
 C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
 ``query`` after ``fallback``, ``answer`` after ``query``, ``stream``
-after ``answer``.
+after ``answer``, ``profiles`` after ``stream``. The ``answer`` phase's
+generator settings and the ``stream`` phase's buffering are read from
+configs/production.yaml and configs/low_latency.yaml through the port's
+loader.
 The spine, the diarized ingest and the large-v3 paths other than
 ``fallback`` run with the fallback ladder off and, at large-v3, in
 English, as ``bench.py`` measures. The spine ingests with
@@ -1988,15 +2010,18 @@ def answer_prompts(n: int, served: bool = False) -> list[str]:
 
 
 def llm_config(**fields):
-    """The shipped profile's generator settings (configs/production.yaml:
-    llama-3.2-3b, decoder_int8, speculative_k 8 — single-row greedy waves
-    only, so never at the config's temperature 0.7), with
-    ``ANSWER_TOKENS``."""
-    from audio_rag_tpu_torch.config import GenerationConfig
+    """The shipped profile's generator settings, read from
+    configs/production.yaml through the port's loader (llama-3.2-3b,
+    decoder_int8, speculative_k 8 — single-row greedy waves only, so never
+    at the config's temperature 0.7), with ``ANSWER_TOKENS``."""
+    import dataclasses
 
-    return GenerationConfig(**{"model": LLM, "decoder_int8": True,
-                               "speculative_k": 8,
-                               "max_tokens": ANSWER_TOKENS, **fields})
+    cfg = shipped("production").generation
+    if (cfg.model, cfg.decoder_int8, cfg.speculative_k) != (LLM, True, 8):
+        fail(f"configs/production.yaml's generator is not {LLM} with "
+             f"decoder_int8 and speculative_k 8: {cfg}")
+    return dataclasses.replace(cfg, **{"max_tokens": ANSWER_TOKENS,
+                                       **fields})
 
 
 def run_trained_answers(K, switches: dict) -> dict:
@@ -2844,9 +2869,6 @@ STREAM_TINY = {"chunk_duration": 4.0, "overlap_duration": 0.5,
                "max_decode_tokens": 112}
 STREAM_E2E = "the model learns fast and stops"
 STREAM_PHRASES = SPINE_TURNS + [STREAM_E2E]
-#: configs/low_latency.yaml's streaming section
-STREAM_SHIPPED = {"chunk_duration": 3.0, "overlap_duration": 0.6,
-                  "max_decode_tokens": 40}
 #: live sessions (the schema's max_sessions) and seconds of speech each
 STREAM_SESSIONS, STREAM_SECONDS = 8, 15.0
 STREAM_QUERIES = 32
@@ -3068,14 +3090,15 @@ def stream_shipped(torch, K, device: str = "cuda",
     import numpy as np
 
     from audio_rag_tpu_torch.asr.mux import StreamingMux
-    from audio_rag_tpu_torch.asr.streaming import StreamingConfig
     from audio_rag_tpu_torch.asr.whisper import WhisperASR
     from audio_rag_tpu_torch.audio.charvoice import SR
     from audio_rag_tpu_torch.config import ASRConfig
     from audio_rag_tpu_torch.ops.mel import HOP_LENGTH
 
     tag = f"stream[{model_size}]"
-    stream_cfg = StreamingConfig(**STREAM_SHIPPED)
+    # configs/low_latency.yaml's streaming section (3 s chunks, 0.6 s
+    # overlap, 40 tokens)
+    stream_cfg = shipped("low_latency").streaming.to_runtime()
     config = ASRConfig(model_size=model_size, compute_type="bfloat16",
                        seed=0, **PROFILES["int8"][0])
     # the backend a session builds: the decode budget capped by the stream
@@ -3339,6 +3362,295 @@ def phase_stream(torch, K, device: str = "cuda") -> dict:
     by_path.update(stream_queries(torch, K, device))
     print(f"stream_s {time.perf_counter() - t0:.1f}", flush=True)
     return by_path
+
+
+# -- phase 13: a shipped profile through the pipeline's entry points --------------------
+
+#: files of speech the phase ingests, turns a file, seconds a turn's window
+PROFILE_FILES, PROFILE_TURNS, PROFILE_TURN_S = 3, 5, 6.0
+PROFILE_QUERIES = ["gradient descent loss", "spectrogram harmonic",
+                   "attention token layer"]
+#: the run's own settings, set as a deployment sets them (the store's
+#: directory is added in the phase's workdir)
+PROFILE_ENV = {"AUDIO_RAG__ASR__MAX_DECODE_TOKENS": "32",
+               "AUDIO_RAG__GENERATION__MAX_TOKENS": "64",
+               "AUDIO_RAG__CONTEXTUAL__ENABLED": "true"}
+PROFILE_SPANS = ("ingest.transcribe", "ingest.diarize",
+                 "ingest.contextualize", "ingest.embed", "ingest.index")
+#: the decode linears' input widths: Whisper large-v3's, llama-3.2-3b's
+WHISPER_DIN, LLAMA_DIN = 1280, 3072
+
+
+@contextlib.contextmanager
+def env_vars(values: dict):
+    """``values`` in ``os.environ`` for the block, the old ones restored."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def shipped(env: str, **env_values):
+    """``configs/{env}.yaml`` over ``base.yaml``, through the port's loader
+    (the run's settings in ``env_values`` as ``AUDIO_RAG__`` variables)."""
+    from audio_rag_tpu_torch.config import load_config
+
+    with env_vars(env_values):
+        return load_config(env=env, configs_dir=ROOT / "configs")
+
+
+def profile_files(workdir: Path) -> list[str]:
+    """``PROFILE_FILES`` WAV files of ``PROFILE_TURNS`` spoken turns each
+    (:func:`speak`, a seed a file)."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.audio.charvoice import SR
+    from audio_rag_tpu_torch.audio.io import write_wav
+
+    paths = []
+    for i in range(PROFILE_FILES):
+        rng = np.random.default_rng(60 + i)
+        turns = [" ".join(rng.choice(SPINE_WORDS, 6).tolist())
+                 for _ in range(PROFILE_TURNS - 1)] + [SPINE_TURNS[i]]
+        paths.append(str(workdir / f"talk{i}.wav"))
+        write_wav(paths[-1], speak(turns, rng, PROFILE_TURN_S), SR)
+    return paths
+
+
+def check_production(cfg, persist_dir: Path, full: bool) -> None:
+    """Fail unless ``cfg`` holds configs/production.yaml's values (``full``:
+    its model names too) and the run's own settings."""
+    want = {
+        "asr.compute_type": "bfloat16", "asr.window_batch_size": 16,
+        "asr.cross_kv_int8": True, "asr.decoder_int8": True,
+        "asr.temperature_fallback": True, "asr.language": None,
+        "asr.max_decode_tokens": 32, "retrieval.quantize_dense": True,
+        "retrieval.persist_dir": str(persist_dir),
+        "generation.decoder_int8": True, "generation.speculative_k": 8,
+        "generation.max_tokens": 64, "contextual.enabled": True,
+        "contextual.backend": "llm", "log_level": "INFO",
+    }
+    if full:
+        want.update({"asr.model_size": "large-v3",
+                     "generation.model": LLM,
+                     "embedding.model": "BAAI/bge-m3",
+                     "reranking.model": "BAAI/bge-reranker-base"})
+    got = {k: getattr(getattr(cfg, k.split(".")[0]), k.split(".")[1])
+           if "." in k else getattr(cfg, k) for k in want}
+    if got != want:
+        fail("profiles: the loaded config is not production.yaml's: "
+             f"{ {k: (got[k], v) for k, v in want.items() if got[k] != v} }")
+
+
+def stored_rows(rag, collection: str) -> list:
+    """A collection's chunks as (text, speaker, start, end) in order."""
+    return [(p["text"], p["speaker"], round(float(p["start"]), 3),
+             round(float(p["end"]), 3))
+            for p in rag.store._coll(collection).payloads]
+
+
+def top5(rag, collection: str) -> list:
+    return [[r.text for r in rag.query(q, collection=collection).results]
+            for q in PROFILE_QUERIES]
+
+
+@contextlib.contextmanager
+def q8w_widths(K):
+    """Count ``matmul_q8w`` calls by the weight's input width (the wrapper
+    is looked up in the module at each call); launches only on a card."""
+    import collections
+
+    widths: collections.Counter = collections.Counter()
+    wrapper = K.matmul_q8w
+
+    def spy(x, w8, s):
+        widths[int(w8.shape[0])] += 1
+        return wrapper(x, w8, s)
+
+    K.matmul_q8w = spy
+    try:
+        yield widths
+    finally:
+        K.matmul_q8w = wrapper
+
+
+def run_profiles(torch, K, device: str, workdir: Path,
+                 rehearse: dict | None = None) -> dict:
+    """The phase's work: from_config(env="production") → ingest_batch with
+    headers → queries, then the per-file loop, a checkpointed ingest
+    resumed from "aligned" with an ASR that raises, ``status()`` and
+    ``clear_collection``. ``rehearse`` (AUDIO_RAG__ values) shrinks the
+    models for a CPU rehearsal. Returns what it measured."""
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+    from audio_rag_tpu_torch.utils.decorators import reset_stage_timings
+    from audio_rag_tpu_torch.utils.tracing import reset_traces
+
+    persist = workdir / "collections"
+    values = {**PROFILE_ENV, "AUDIO_RAG__RETRIEVAL__PERSIST_DIR":
+              str(persist), **(rehearse or {})}
+    with env_vars(values):
+        rag = AudioRAG.from_config(env="production",
+                                   configs_dir=ROOT / "configs")
+    check_production(rag.config, persist, full=not rehearse)
+    if str(rag.device) != device and rag.device.type != device:
+        fail(f"profiles: AudioRAG runs on {rag.device}, not {device}")
+    files = profile_files(workdir)
+    reset_stage_timings()
+    reset_traces()
+    t0 = time.perf_counter()
+    for stage in ("asr", "diarizer", "embedder", "generator", "reranker"):
+        getattr(rag, stage)  # loaded outside the timed runs
+    sync(torch, device)
+    out = {"load_s": time.perf_counter() - t0}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed_run(tag, fn):
+        K.reset_launches()
+        with q8w_widths(K) as widths, plain_calls(K, K.KERNELS) as plain:
+            t0 = time.perf_counter()
+            results = fn()
+            sync(torch, device)
+            wall = time.perf_counter() - t0
+            tops = top5(rag, tag)
+            sync(torch, device)
+        out[tag] = {"wall_s": wall, "results": results, "tops": tops,
+                    "rows": stored_rows(rag, tag),
+                    "launches": launch_counts(K), "q8w_widths": dict(widths),
+                    "plain_calls": dict(plain)}
+
+    # (b) the staged batch, then the per-file loop; the loop's first file
+    # is checkpointed, for (c)
+    timed_run("batch", lambda: rag.ingest_batch(files, collection="batch"))
+    ckpt: dict = {}
+
+    def loop():
+        first = rag.ingestion.ingest(files[0], collection="loop",
+                                     checkpoint_cb=ckpt.__setitem__)
+        return [first] + [rag.ingest(f, None, "loop") for f in files[1:]]
+
+    timed_run("loop", loop)
+    # (c) resume from "aligned": the audio stages must not run again
+    asr = rag.asr
+
+    def refuse(*args, **kw):
+        raise AssertionError("the ASR ran on a resumed ingest")
+
+    asr.transcribe_with_words = refuse
+    try:
+        resumed = rag.ingestion.ingest(
+            files[0], collection="resumed",
+            resume={"stage": "aligned", **json.loads(json.dumps(
+                ckpt["aligned"]))})
+    finally:
+        del asr.transcribe_with_words
+    out["checkpoints"] = list(ckpt)
+    out["resumed"] = {"rows": stored_rows(rag, "resumed"),
+                      "stage_timings": resumed.stage_timings}
+    out["first_file_rows"] = out["loop"]["rows"][
+        : out["loop"]["results"][0].num_chunks]
+    if device == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # (d)
+    out["status"] = rag.status()
+    out["counts"] = {c: rag.count(c) for c in ("batch", "loop", "resumed")}
+    out["cleared"] = {c: (rag.clear_collection(c), rag.count(c))
+                      for c in ("batch", "loop", "resumed")}
+    rag.unload_all()
+    return out
+
+
+def phase_profiles(torch, K, workdir: Path) -> dict:
+    """(13) configs/production.yaml through ``from_config`` at full width
+    (seeded weights): three 30 s files through ``ingest_batch`` with 3b
+    headers (stage-grouped) and through the per-file loop (the same
+    chunks and top 5), resume from a checkpoint, ``status()``; launches
+    checked. Returns launches by path."""
+    t0 = time.perf_counter()
+    out = run_profiles(torch, K, "cuda", workdir)
+    card = card_line()
+    batch, loop = out["batch"], out["loop"]
+    for tag, run in (("batch", batch), ("loop", loop)):
+        for i, res in enumerate(run["results"]):
+            print(f"profiles[{tag}] file {i} chunks {res.num_chunks} "
+                  f"speakers {res.num_speakers} stage s "
+                  f"{json.dumps(res.stage_timings)} ({card})", flush=True)
+        print(f"profiles[{tag}] wall_s {run['wall_s']:.3f} launches "
+              f"{json.dumps(run['launches'])} matmul_q8w by din "
+              f"{json.dumps(run['q8w_widths'])} ({card})", flush=True)
+    print(f"profiles load_s {out['load_s']:.1f} batch/loop wall "
+          f"{batch['wall_s']:.3f} / {loop['wall_s']:.3f} s "
+          f"({batch['wall_s'] / loop['wall_s']:.3f}x) peak "
+          f"{out['peak_mem_gb']:.2f} GB ({card})", flush=True)
+    print("profiles batch chunks (text's first 60 characters, speaker, "
+          "start, end)", json.dumps([(t[:60], *rest) for t, *rest in
+                                     batch["rows"]]), flush=True)
+    print("profiles top 5 a query (first 60 characters)", json.dumps(
+        [[t[:60] for t in top] for top in batch["tops"]]), flush=True)
+    if not batch["rows"] or any(not res.num_chunks
+                                for res in batch["results"]):
+        fail(f"profiles: a file stored no chunk: {batch['rows']}")
+    if not all(r[0].startswith("[Context: ") for r in batch["rows"]):
+        fail("profiles: a chunk of the batch has no header")
+    if batch["rows"] != loop["rows"]:
+        fail("profiles: the staged batch's chunks differ from the per-file "
+             f"loop's: {batch['rows']} against {loop['rows']}")
+    if batch["tops"] != loop["tops"]:
+        fail(f"profiles: the top 5 differ: {batch['tops']} against "
+             f"{loop['tops']}")
+    want_n = min(5, len(batch["rows"]))
+    if not all(len(t) == want_n for t in batch["tops"]):
+        fail(f"profiles: a query returned other than {want_n} hits: "
+             f"{batch['tops']}")
+    for tag, run in (("batch", batch), ("loop", loop)):
+        n = run["launches"]
+        if not (n[FLASH] and n[FLASH] == n[WGMMA] and n[Q8W] and n[CROSS8]):
+            fail(f"profiles[{tag}]: rows 1-3 did not all launch, or a flash "
+                 f"call missed wgmma: {n}")
+        idle = {k: n[k] for k in (CROSS4, Q4W, SELF8, REORDER) if n[k]}
+        if idle:
+            fail(f"profiles[{tag}]: kernels off this path launched: {idle}")
+        if not (run["q8w_widths"].get(WHISPER_DIN)
+                and run["q8w_widths"].get(LLAMA_DIN)):
+            fail(f"profiles[{tag}]: matmul_q8w did not run at both "
+                 f"Whisper's and 3b's shapes: {run['q8w_widths']}")
+        if any(run["plain_calls"].values()):
+            fail(f"profiles[{tag}]: plain versions were called: "
+                 f"{run['plain_calls']}")
+    if out["checkpoints"] != ["aligned", "contextualized"]:
+        fail(f"profiles: checkpoints fired {out['checkpoints']}")
+    if out["resumed"]["rows"] != out["first_file_rows"]:
+        fail("profiles: the resumed ingest's chunks differ from the first "
+             f"run's: {out['resumed']['rows']} against "
+             f"{out['first_file_rows']}")
+    if "transcribe" in out["resumed"]["stage_timings"]:
+        fail("profiles: the resumed ingest transcribed again")
+    st = out["status"]
+    if st["collections"] != out["counts"] or out["counts"]["batch"] != sum(
+            r.num_chunks for r in batch["results"]):
+        fail(f"profiles: status() counts {st['collections']} against "
+             f"{out['counts']}")
+    n_ingests = st["stage_timings"].get("IngestionPipeline.ingest", {}).get(
+        "count")
+    if n_ingests != PROFILE_FILES + 1:
+        fail(f"profiles: status() counted {n_ingests} ingests, expected "
+             f"{PROFILE_FILES + 1}")
+    missing = [s for s in PROFILE_SPANS if s not in st["traces"]]
+    if missing:
+        fail(f"profiles: status() traces lack {missing}")
+    if any(ok is not True or n for ok, n in out["cleared"].values()):
+        fail(f"profiles: clear_collection left {out['cleared']}")
+    print(f"profiles status {json.dumps({k: st[k] for k in ('config', 'engine', 'resources', 'collections')})}",
+          flush=True)
+    print(f"profiles_s {time.perf_counter() - t0:.1f}", flush=True)
+    return {"profiles[batch]": batch["launches"],
+            "profiles[loop]": loop["launches"]}
 
 
 def large_v3_config(device: str, profile: str, window_batch: int,
@@ -3821,10 +4133,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
-                            "answer,stream,full,full_kv4,capacity,beam",
+                            "answer,stream,profiles,full,full_kv4,capacity,"
+                            "beam",
                     help="comma-separated subset of build,kernels,spine,"
-                         "diarize,fallback,query,answer,stream,full,"
-                         "full_kv4,capacity,beam")
+                         "diarize,fallback,query,answer,stream,profiles,"
+                         "full,full_kv4,capacity,beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -3886,6 +4199,10 @@ def main() -> None:
         free_card(torch)
     if "stream" in phases:
         by_path.update(phase_stream(torch, K))
+        free_card(torch)
+    if "profiles" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path.update(phase_profiles(torch, K, Path(tmp)))
         free_card(torch)
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)

@@ -516,11 +516,13 @@ def test_unload_all_stops_the_scheduler():
 
 
 def test_unported_modes_raise(monkeypatch):
-    """PRF expansion, an LLM checkpoint and speech raise ``ConfigError``
-    naming what is not ported, and so does the trained generator when its
-    asset is missing; the continuous batcher and the speculative program,
-    ported since, build and answer instead; the config refuses unknown
-    names; "none" and "fake" build as in the JAX package."""
+    """An LLM checkpoint and speech raise ``ConfigError`` naming what is
+    not ported, and so does the trained generator when its asset is
+    missing; the continuous batcher, the speculative program and PRF
+    expansion, ported since, build and answer instead (PRF's first pass
+    finds nothing in an empty collection, so the query stands); the
+    config refuses unknown names; "none" and "fake" build as in the JAX
+    package."""
     sg = create_generator(GenerationConfig(
         model="eval-small", temperature=0.0, max_tokens=8,
         scheduler_mode="continuous", scheduler_slots=2), device="cpu")
@@ -547,8 +549,8 @@ def test_unported_modes_raise(monkeypatch):
         reranking=RerankingConfig(backend="none"),
         generation=GenerationConfig(backend="fake"),
         expansion=ExpansionConfig(backend="prf"), device="cpu"))
-    with pytest.raises(ConfigError, match="prf"):
-        rag.query("gradient", collection="c")
+    out = rag.query("gradient", collection="c")
+    assert out.expanded_query == "gradient" and not out.results
     with pytest.raises(ConfigError, match="not ported"):
         rag.query("gradient", collection="c", use_hyde=False,
                   speak_answer=True)

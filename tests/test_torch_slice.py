@@ -139,19 +139,28 @@ def test_query_batch_and_context_match_jax(reranking_rags):
 
 
 def test_llm_options_are_refused(reranking_rags):
-    """What the slice does not port raises ``ConfigError``: speech, and
-    HyDE's sibling, pseudo-relevance feedback (on by default when the
-    expansion backend names it); an empty collection still answers."""
-    _, port, _ = reranking_rags
+    """What the slice does not port raises ``ConfigError``: speech. HyDE's
+    sibling, pseudo-relevance feedback (on by default when the expansion
+    backend names it), is ported: a query expanded by it gives the JAX
+    package's expansion and results (both mine the default collection,
+    empty here, so the query stands); an empty collection still
+    answers."""
+    from audio_rag_tpu.config.schema import ExpansionConfig as JaxExpansion
+
+    jax_rag, port, _ = reranking_rags
     with pytest.raises(ConfigError, match="not ported"):
         port.query(QUERIES[0], collection="slice", speak_answer=True)
-    saved = port.config.expansion
+    saved = port.config.expansion, jax_rag.config.expansion
     port.config.expansion = ExpansionConfig(backend="prf")
+    jax_rag.config.expansion = JaxExpansion(backend="prf")
     try:
-        with pytest.raises(ConfigError, match="not ported"):
-            port.query(QUERIES[0], collection="slice")
+        got = port.query(QUERIES[0], collection="slice")
+        ref = jax_rag.query(QUERIES[0], collection="slice")
     finally:
-        port.config.expansion = saved
+        port.config.expansion, jax_rag.config.expansion = saved
+        port.querying._expander = jax_rag.querying._expander = None
+    assert got.expanded_query == ref.expanded_query == QUERIES[0]
+    _assert_same_results(got.results, ref.results)
     assert port.query("nothing here", collection="empty").response == \
         "No relevant content found."
 
@@ -192,11 +201,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                                        pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        from audio_rag_tpu_torch.config import AudioRAGConfig
+        from audio_rag_tpu_torch.config import AudioRAGConfig, load_config
         from audio_rag_tpu_torch.pipeline import AudioRAG
         AudioRAG(AudioRAGConfig(device="cpu"))
+        load_config(env="production", overrides={"device": "cpu"})
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "audio_rag_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "audio_rag_tpu",
+                                            "yaml"))
         print(len(names), bad)
         sys.exit(1 if bad or len(names) < 20 else 0)
     """)
@@ -216,13 +227,15 @@ def _imported_roots(path):
 
 
 def test_sources_of_port_and_chip_smoke_import_no_jax():
-    """No import of JAX or the JAX package, and no use of the JAX
-    package's native library or its Makefile: the port builds its own
-    copy of the C++ source."""
+    """No import of JAX, the JAX package or PyYAML (the card's machine has
+    no PyYAML: the port reads its profiles with its own reader), and no
+    use of the JAX package's native library or its Makefile: the port
+    builds its own copy of the C++ source."""
     files = [ROOT / "chip_smoke.py",
              *sorted((ROOT / "audio_rag_tpu_torch").rglob("*.py"))]
     for path in files:
-        bad = _imported_roots(path) & {"jax", "jaxlib", "audio_rag_tpu"}
+        bad = _imported_roots(path) & {"jax", "jaxlib", "audio_rag_tpu",
+                                       "yaml"}
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
     for path in [*files, *sorted(
             (ROOT / "audio_rag_tpu_torch" / "csrc").glob("*.cpp"))]:
