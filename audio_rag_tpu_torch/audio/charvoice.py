@@ -3,14 +3,16 @@
 identity and duration class. The committed tiny Whisper asset was trained
 to transcribe this voice, so speech rendered here closes the speech → text
 loop without downloaded weights. Deterministic given the rng; the same rng
-gives the same samples as the JAX package's copy.
+gives the same samples, and the same utterance texts, as the JAX package's
+copy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SR", "HOP", "VOWELS", "char_duration", "synth_char", "synth_text"]
+__all__ = ["SR", "HOP", "VOWELS", "char_duration", "synth_char", "synth_text",
+           "corpus_lexicon", "make_utterance_texts"]
 
 SR = 16_000
 HOP = 160  # one duration frame = 10 ms
@@ -94,3 +96,66 @@ def synth_text(
         audio = audio + noise_level * rng.standard_normal(
             audio.size).astype(np.float32)
     return audio.astype(np.float32)
+
+
+# -- utterance texts (the WER sets and the audio-in ladder speak them) --
+
+_WORD_CHARS = "abcdefghijklmnopqrstuvwxyz"
+
+
+def corpus_lexicon() -> list[str]:
+    """Pseudo-English words from the discriminating eval corpus — the
+    text distribution the audio-in quality ladder speaks."""
+    from audio_rag_tpu_torch.evaluation.corpus import make_corpus
+
+    c = make_corpus()
+    words: set[str] = set()
+    for chunk in c.chunks[:120]:
+        for w in chunk.lower().split():
+            w = w.strip(".,;:!?()[]\"'")
+            if w and all(ch in _WORD_CHARS + "0123456789" for ch in w):
+                words.add(w)
+    return sorted(words)
+
+
+def make_utterance_texts(
+    rng: np.random.Generator, n: int, lexicon: list[str],
+    max_frames: int = 540, max_chars: int = 100,
+    double_p: float = 0.0,
+) -> list[str]:
+    """Utterance texts fitting one 6 s tiny-synth window (≤ ``max_frames``
+    charvoice duration frames and ≤ ``max_chars`` chars): a mix of
+    corpus-lexicon words, random letter strings, and digit strings.
+
+    ``double_p``: per-word probability of doubling one letter — a
+    TRAINING-side boost (repeated chars render as one long tone with only
+    an amplitude dip, the hardest case; eval keeps the natural rate)."""
+    texts = []
+    for _ in range(n):
+        words: list[str] = []
+        frames = 0
+        budget = int(rng.integers(150, max_frames))
+        while True:
+            if rng.random() < 0.55 and lexicon:
+                w = lexicon[int(rng.integers(len(lexicon)))]
+            elif rng.random() < 0.12:
+                w = "".join(
+                    rng.choice(list("0123456789"),
+                               int(rng.integers(1, 5))))
+            else:
+                w = "".join(
+                    rng.choice(list(_WORD_CHARS),
+                               int(rng.integers(2, 9))))
+            if double_p and rng.random() < double_p and w.isalpha():
+                j = int(rng.integers(len(w)))
+                w = w[:j] + w[j] + w[j:]
+            need = sum(char_duration(c) for c in w) + char_duration(" ")
+            if (frames + need > budget
+                    or len(" ".join(words + [w])) > max_chars):
+                break
+            words.append(w)
+            frames += need
+        if not words:
+            words = ["ok"]
+        texts.append(" ".join(words))
+    return texts

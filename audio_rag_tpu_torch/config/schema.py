@@ -25,9 +25,8 @@ package). :func:`~audio_rag_tpu_torch.config.loader.load_config` drops
 them at those defaults and refuses any other value.
 
 Values that name a feature the port has not got are held here and raise
-``ConfigError`` where they are used: a ``tts.backend`` other than "null",
-``retrieval.backend`` "fake" (registered nowhere in the JAX package
-either) and any ``checkpoint_path`` (no converted checkpoint is read).
+``ConfigError`` where they are used: ``retrieval.backend`` "fake"
+(registered nowhere in the JAX package either) and any ``checkpoint_path`` (no converted checkpoint is read).
 ``resources.*`` is held and read by nothing yet; ``embedding.normalize``
 is held and changes nothing (the JAX embedders normalize either way);
 ``alignment.method`` is held (the JAX aligner reads it nowhere either);
@@ -485,8 +484,10 @@ class StreamingSchema:
 
 @dataclass
 class TTSConfig:
-    """Speech output: held; TTS is not ported, so a backend other than
-    "null" raises where an answer would be spoken."""
+    """Speech output: the backend that speaks ``query(speak_answer=True)``'s
+    answer ("null" tone, "jax" the neural TTS, "piper" or "edge-tts" where
+    their engines are installed), the one it falls back to when it fails to
+    load, and the WAV's sample rate."""
 
     backend: str = _f("null", choices=("null", "piper", "edge-tts", "jax"))
     model: str = "en_US-lessac-medium"

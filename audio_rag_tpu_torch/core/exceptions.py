@@ -14,6 +14,7 @@ __all__ = [
     "TranscriptionError",
     "RetrievalError",
     "GenerationError",
+    "TTSError",
 ]
 
 
@@ -48,3 +49,7 @@ class RetrievalError(AudioRAGError):
 
 class GenerationError(AudioRAGError):
     """LLM answer-synthesis failure."""
+
+
+class TTSError(AudioRAGError):
+    """Text-to-speech failure."""

@@ -135,8 +135,8 @@ class AudioRAG(SharedStages):
         """Release every model the pipeline loaded, as the JAX
         orchestrator's ``unload_all`` does: the generator's scheduler (the
         wave thread, or the continuous batcher's thread and its cache)
-        stops and its weights go, and each stage is built anew on its next
-        use. The store stays."""
+        stops and its weights go, the TTS backend's too, and each stage is
+        built anew on its next use. The store stays."""
         self.unload_shared()
         self.ingestion.unload()
         self.querying.unload()

@@ -1,5 +1,5 @@
 """Query pipeline of the port (counterpart of
-``audio_rag_tpu/pipeline/query.py``, speech off).
+``audio_rag_tpu/pipeline/query.py``).
 
 Without a metadata filter and with the query's own text, a query runs the
 batched :class:`~audio_rag_tpu_torch.engine.query_engine.QueryEngine`
@@ -12,19 +12,22 @@ is on unless the config's backend is "none" or the call passes
 ``expansion.backend`` is "hyde" or "prf") embeds the HyDE passage the
 generator writes, or the query with PRF's terms appended.
 ``generate_answer=True`` asks the generator for an answer from
-``SYSTEM_PROMPT`` and ``build_rag_prompt`` over the results. A failing
-answer or passage raises (the JAX pipeline logs it and goes on); speech is
-not ported and raises ``ConfigError``.
+``SYSTEM_PROMPT`` and ``build_rag_prompt`` over the results;
+``speak_answer=True`` speaks a non-empty answer through the configured TTS
+backend into ``audio`` (WAV bytes), falling back to
+``tts.fallback_backend`` when the configured one fails to load. A failing
+answer, passage or synthesis raises (the JAX pipeline logs it and goes on).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any
 
 from audio_rag_tpu_torch.config import AudioRAGConfig
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import RetrievalResult
 from audio_rag_tpu_torch.engine.query_engine import QueryEngine
 from audio_rag_tpu_torch.expansion import HyDEExpander, PRFExpander
@@ -35,8 +38,11 @@ from audio_rag_tpu_torch.generation.prompts import (
 )
 from audio_rag_tpu_torch.pipeline.stages import SharedStages
 from audio_rag_tpu_torch.reranking import create_reranker
+from audio_rag_tpu_torch.tts import create_tts
 from audio_rag_tpu_torch.utils.decorators import timed
 from audio_rag_tpu_torch.utils.tracing import span
+
+log = logging.getLogger(__name__)
 
 __all__ = ["QueryPipeline", "QueryResult", "format_context"]
 
@@ -95,6 +101,8 @@ class QueryPipeline:
         self._reranker = None
         self._reranker_built = False
         self._expander: HyDEExpander | PRFExpander | None = None
+        self._tts = None
+        self._tts_built = False
 
     @property
     def reranker(self):
@@ -122,10 +130,38 @@ class QueryPipeline:
                                               self.stages.generator)
         return self._expander
 
+    @property
+    def tts(self):
+        """The configured TTS backend, loaded; when it fails to load, the
+        ``fallback_backend`` (with a warning), as the JAX pipeline's chain;
+        None for "none" or when the fallback fails too."""
+        if not self._tts_built:
+            cfg = self.config.tts
+            self._tts = self._load_tts(cfg)
+            if self._tts is None and cfg.fallback_backend != "none" \
+                    and cfg.backend not in ("none", cfg.fallback_backend):
+                self._tts = self._load_tts(dataclasses.replace(
+                    cfg, backend=cfg.fallback_backend), "fallback ")
+            self._tts_built = True
+        return self._tts
+
+    def _load_tts(self, cfg, what: str = ""):
+        tts = create_tts(cfg, device=self.stages.device)
+        if tts is not None and not tts.is_loaded:
+            try:
+                tts.load()
+            except Exception as exc:
+                log.warning("TTS %sbackend %r failed to load: %s", what,
+                            cfg.backend, exc)
+                return None
+        return tts
+
     def unload(self) -> None:
         """Drop the stages this pipeline built (rebuilt on next use)."""
-        self._reranker = self._expander = None
-        self._reranker_built = False
+        if self._tts is not None:
+            self._tts.unload()
+        self._reranker = self._expander = self._tts = None
+        self._reranker_built = self._tts_built = False
 
     def _do_rerank(self, rerank: bool | None) -> bool:
         return (self.config.reranking.backend != "none" if rerank is None
@@ -149,11 +185,8 @@ class QueryPipeline:
         """The top ``top_k`` chunks for ``query``; ``response`` holds them
         as ``[speaker at MM:SS] text`` lines, ``answer`` the generator's
         answer with ``generate_answer``, ``expanded_query`` the expanded
-        text (HyDE's passage or PRF's query) when expansion ran."""
-        if speak_answer:
-            raise ConfigError(
-                "speak_answer=True needs TTS, which is not ported yet "
-                "(ROADMAP.md §1)", context={"speak_answer": True})
+        text (HyDE's passage or PRF's query) when expansion ran, ``audio``
+        the spoken answer with ``speak_answer`` (None without an answer)."""
         t_start = time.perf_counter()
         timings: dict[str, float] = {}
         top_k = top_k or self.config.retrieval.top_k
@@ -206,10 +239,15 @@ class QueryPipeline:
         if generate_answer and results and self.stages.generator is not None:
             answer = self.stages.generator.generate(
                 build_rag_prompt(query, results), system=SYSTEM_PROMPT)
-            clock("generate", t0)
+            t0 = clock("generate", t0)
+        audio = None
+        if speak_answer and answer and self.tts is not None:
+            with span("query.tts"):
+                audio = self.tts.synthesize(answer)
+            clock("tts", t0)
         return QueryResult(
             query=query, results=results,
-            response=_build_response(results), answer=answer,
+            response=_build_response(results), answer=answer, audio=audio,
             expanded_query=expanded,
             elapsed_s=round(time.perf_counter() - t_start, 4),
             stage_timings=timings)

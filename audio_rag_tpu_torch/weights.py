@@ -24,6 +24,7 @@ from audio_rag_tpu_torch.models.bert import BertDims
 from audio_rag_tpu_torch.models.layers import q4_group
 from audio_rag_tpu_torch.models.llm import LLM_PRESETS, LLMDims
 from audio_rag_tpu_torch.models.speaker import SpeakerDims
+from audio_rag_tpu_torch.models.tts import TTS_PRESETS, TTSDims
 from audio_rag_tpu_torch.models.whisper import WhisperDims
 
 __all__ = [
@@ -34,6 +35,7 @@ __all__ = [
     "speaker_spec",
     "vad_spec",
     "llm_spec",
+    "tts_spec",
     "whisper_params",
     "whisper_q8_params",
     "whisper_cross_kv",
@@ -44,6 +46,8 @@ __all__ = [
     "vad_params",
     "convert_llm",
     "load_llm_small",
+    "tts_params",
+    "load_tts_small",
 ]
 
 Shape = tuple[int, ...]
@@ -204,6 +208,25 @@ def llm_spec(dims: LLMDims) -> dict[str, Shape]:
     return spec
 
 
+def tts_spec(dims: TTSDims) -> dict[str, Shape]:
+    """Slash-joined key → shape of every leaf of a TTS tree (``init_tts``
+    layout)."""
+    d, L_enc, L_dec = dims.d_model, dims.n_enc_layer, dims.n_dec_layer
+    spec: dict[str, Shape] = {"emb/table": (dims.n_vocab, d)}
+    spec.update(_whisper_blocks("enc_blocks", L_enc, d, cross=False))
+    spec.update(_whisper_blocks("dec_blocks", L_dec, d, cross=False))
+    spec.update(_ln("enc_ln", None, d))
+    spec.update(_ln("dec_ln", None, d))
+    spec.update(_lin("dur/h", None, d, d // 2))
+    spec.update(_ln("dur/ln", None, d // 2))
+    spec.update(_lin("dur/out", None, d // 2, 1))
+    spec.update(_lin("mel_head", None, d, dims.n_mels))
+    spec.update(_lin("refine/h", None, dims.n_mels, d))
+    spec.update(_ln("refine/ln", None, d))
+    spec.update(_lin("refine/out", None, d, dims.n_mels))
+    return spec
+
+
 def _to_tensor(arr: Any, device: torch.device,
                dtype: torch.dtype | None) -> torch.Tensor:
     a = np.array(arr)  # a copy: the tree's arrays may be read-only views
@@ -319,6 +342,23 @@ def load_llm_small(device: str | torch.device = "cpu",
     if tree is None:
         return None
     return convert_llm(tree, LLM_PRESETS["eval-small"], device, dtype)
+
+
+def tts_params(tree: dict, dims: TTSDims,
+               device: str | torch.device = "cpu",
+               dtype: torch.dtype = torch.float32) -> dict:
+    """A TTS tree (``init_tts`` layout) → tensors of ``dtype``; f32 by
+    default, as the JAX backend widens the f16 asset."""
+    return _float_tree(tree, tts_spec(dims), "tts", device, dtype)
+
+
+def load_tts_small(device: str | torch.device = "cpu") -> dict | None:
+    """The committed trained TTS (``tts_small.npz``, "small" shapes) in
+    f32, read in place; None when the asset is missing."""
+    tree = load_npz_asset(ASSETS_DIR / "tts_small.npz")
+    if tree is None:
+        return None
+    return tts_params(tree, TTS_PRESETS["small"], device)
 
 
 def _quant_leaf(prefix: str, leaf: Any, din: int,

@@ -178,13 +178,39 @@ subset):
               4-7 and every plain version not at all. Prints each file's
               stage seconds, the batch's wall time against the loop's and
               the peak memory beside the card's name and power limit.
+14. eval    — evaluation and speech output, on the card against the
+              port's CPU path in three worker processes of the script's
+              own: (a) the WER harness's held-out sets on the trained tiny
+              ASR (64 charvoice utterances from ``default_rng(777)`` in
+              the f32 and int8 profiles, 16 multi-window files in f32):
+              WER, CER, S/D/I beside the JAX package's record, the card's
+              hypotheses equal to the CPU's; (b) the trained neural TTS on
+              the TTS set (16 texts): durations equal to the CPU's (or a
+              printed half-integer tie), mel within 0.0625, the vocoder on
+              one mel within 1e-3, two card runs of one text the same bits,
+              ms a segment batch and the TTS-rendered WER; (c) the text
+              quality sweep (card = CPU within 1e-4) and the audio-in
+              ladder (272 chunks spoken and transcribed on the card) beside
+              the record, its separation orderings asserted; (d)
+              ``RAGEvaluator.evaluate_dataset`` with answers and the judged
+              quartet on 12 corpus questions through ``AudioRAG`` (eval-small
+              embedder, reranker and greedy generator under decoder_int8):
+              the quartet beside the record, every judge call's tokens equal
+              to the CPU's on the same prompt or parted at a near-tie;
+              (e) ``query(generate_answer=True, speak_answer=True)`` with
+              the neural and the null TTS: a 22,050 Hz WAV and its ms. Rows
+              1-3 must launch (f32 encoder flash, int8 profile's
+              ``matmul_q8w`` and cross-attention, the generator's
+              ``matmul_q8w``), no kernel in TTS or the text sweep, no plain
+              version on the card.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
 the script fails without it, so the word-time DTW of every ingest runs in
 C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
 ``query`` after ``fallback``, ``answer`` after ``query``, ``stream``
-after ``answer``, ``profiles`` after ``stream``. The ``answer`` phase's
+after ``answer``, ``profiles`` after ``stream``, ``eval`` after
+``profiles``. The ``answer`` phase's
 generator settings and the ``stream`` phase's buffering are read from
 configs/production.yaml and configs/low_latency.yaml through the port's
 loader.
@@ -2301,12 +2327,13 @@ def wave_scores(torch, gen, texts: list[str], ids: list[list[int]],
 
 
 def check_header_calls(torch, tag: str, gen, got: list, ref: list,
-                       temp: float) -> int:
-    """The card's header batches (prompts, ids) against the CPU's: equal,
+                       temp: float, max_new: int | None = None) -> int:
+    """The card's generator batches (prompts, ids) against the CPU's: equal,
     or a row parts at a near-tie of the card's own scores — the two tokens
-    its best two, within ``TIE_ULPS`` bf16 ulps of each logit over T —
-    after which the row is not compared. Prints each parting; returns how
-    many there were."""
+    its best two, within ``TIE_ULPS`` bf16 ulps of each logit over T (the
+    logits themselves at T = 0, greedy) — after which the row is not
+    compared. ``max_new``: the batches' new-token quota (``wave_scores``).
+    Prints each parting; returns how many there were."""
     import numpy as np
 
     parted = 0
@@ -2319,18 +2346,21 @@ def check_header_calls(torch, tag: str, gen, got: list, ref: list,
             eos = gen._tok.eos_id
             a2, b2 = a + [eos], b + [eos]
             step = next(i for i, (x, y) in enumerate(zip(a2, b2)) if x != y)
-            sc, lg = wave_scores(torch, gen, texts, gids, row, temp)
+            sc, lg = wave_scores(torch, gen, texts, gids, row, temp or 1.0,
+                                 max_new)
+            if not temp:
+                sc = lg
             top2 = np.argsort(-sc[step])[:2].tolist()
             mag = np.maximum(np.abs(lg[step][top2]), 2.0 ** -100)
             bound = TIE_ULPS * float(
-                (2.0 ** (np.floor(np.log2(mag)) - 7)).sum()) / temp
+                (2.0 ** (np.floor(np.log2(mag)) - 7)).sum()) / (temp or 1.0)
             gap = float(sc[step][top2[0]] - sc[step][top2[1]])
-            print(f"{tag}: header row {row} parts from the CPU's at token "
+            print(f"{tag}: row {row} parts from the CPU's at token "
                   f"{step} ({a2[step]} against {b2[step]}): the card's "
                   f"best two {top2}, score gap {gap:.5f}, near-tie bound "
                   f"{bound:.5f}", flush=True)
             if set(top2) != {a2[step], b2[step]} or gap > bound:
-                fail(f"{tag}: header row {row} parts from the CPU's at "
+                fail(f"{tag}: row {row} parts from the CPU's at "
                      f"token {step} without a near-tie")
             parted += 1
     return parted
@@ -3653,6 +3683,498 @@ def phase_profiles(torch, K, workdir: Path) -> dict:
             "profiles[loop]": loop["launches"]}
 
 
+# -- eval: the quality numbers ---------------------------------------------------------
+
+EVAL_N = 64  # the WER harness's charvoice utterances (default_rng(777))
+EVAL_SAMPLES = 12  # the RAG evaluator's samples: 4 each of three query types
+EVAL_WORKERS = 3  # CPU reference processes, 2 torch threads each
+EVAL_CHUNK = 8  # utterances a CPU reference task transcribes
+TTS_MEL_MAX, TTS_MEL_MEAN = 0.0625, 2e-3  # the CPU tests' bounds to JAX
+TTS_AUDIO_MAX, TTS_AUDIO_CORR = 1e-3, 0.99999  # the vocoder on one mel
+METRIC_TOL = 1e-4  # a quality metric, card against CPU
+RECORDS = ROOT / "docs" / "bench_runs"  # the JAX package's CPU records
+EVAL_KERNELS = (FLASH, Q8W, CROSS8)
+
+_EVAL_STATE: dict = {}  # a CPU reference process's models and sets
+
+
+def eval_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(2)
+    sys.path.insert(0, str(ROOT))
+
+
+def eval_generator_config():
+    """The judge and answer generator of ``eval``: the trained eval-small
+    LLM, greedy, unscheduled, int8 decode weights, 64 new tokens."""
+    from audio_rag_tpu_torch.config import GenerationConfig
+
+    return GenerationConfig(model="eval-small", temperature=0.0,
+                            decoder_int8=True, use_scheduler=False,
+                            speculative_k=0, max_tokens=ANSWER_TOKENS)
+
+
+def tts_mels(tts, text: str) -> list:
+    """``text``'s batches through the TTS model, as ``synthesize`` runs
+    them: mel, frame mask, log-durations and durations (numpy)."""
+    import torch
+
+    from audio_rag_tpu_torch.models.tts import apply_tts, predict_durations
+
+    tts.load()
+    out = []
+    for dims, toks in tts.segment_batches(text):
+        t = torch.from_numpy(toks).to(tts.device)
+        mel, valid, log_dur = apply_tts(tts._params, dims, t)
+        dur = predict_durations(dims, log_dur, t)
+        out.append({k: v.cpu().numpy() for k, v in (
+            ("mel", mel), ("valid", valid), ("log_dur", log_dur),
+            ("dur", dur))})
+    return out
+
+
+def eval_cpu(task: tuple):
+    """One CPU reference task of ``eval``, in a worker process: ("wer",
+    profile, set, n, lo, hi) → hypotheses (of ``make_sets(n)``); ("tts", text) → ``tts_mels``;
+    ("vocode", mel) → audio; ("sweep",) → the text sweep; ("judge", texts,
+    max_tokens) → greedy token ids."""
+    import torch
+
+    from audio_rag_tpu_torch.evaluation import wer_sets
+
+    st = _EVAL_STATE
+    kind, *args = task
+    if kind == "wer":
+        profile, which, n, lo, hi = args
+        if n not in st:
+            st[n] = wer_sets.make_sets(n)
+        if profile not in st:
+            st[profile] = wer_sets.tiny_asr(profile, "cpu")
+        sets = st[n]
+        wavs = sets.wavs if which == "charvoice" else sets.stream_wavs
+        return wer_sets.transcribe_all(st[profile], wavs[lo:hi])
+    if kind == "tts":
+        if "tts" not in st:
+            st["tts"] = eval_tts("cpu")
+        return tts_mels(st["tts"], args[0])
+    if kind == "vocode":
+        from audio_rag_tpu_torch.models.tts import mel_to_audio
+
+        return mel_to_audio(torch.from_numpy(args[0])).numpy()
+    if kind == "sweep":
+        from audio_rag_tpu_torch.evaluation.quality import run_quality_sweep
+
+        return run_quality_sweep(device="cpu")
+    if kind == "judge":
+        from audio_rag_tpu_torch.generation.llm import LLMGenerator
+
+        if "gen" not in st:
+            st["gen"] = LLMGenerator(eval_generator_config(), device="cpu")
+        texts, max_tokens = args
+        st["gen"].generate_batch(texts, max_tokens=max_tokens,
+                                 temperature=0.0)
+        return st["gen"].last_token_ids
+    raise ValueError(kind)
+
+
+def eval_tts(device: str):
+    from audio_rag_tpu_torch.config import TTSConfig
+    from audio_rag_tpu_torch.tts.neural import NeuralTTS
+
+    tts = NeuralTTS(TTSConfig(backend="jax"), device=device)
+    tts.load()
+    return tts
+
+
+def record(name: str) -> dict:
+    return json.loads((RECORDS / name).read_text())
+
+
+def sweep_gaps(got: dict, ref: dict) -> list:
+    """(config, type, metric, got, ref) where two sweeps differ by more
+    than ``METRIC_TOL``."""
+    out = []
+    for cfg in ref:
+        for t in [None, *ref[cfg]["by_type"]]:
+            g = got[cfg] if t is None else got[cfg]["by_type"].get(t, {})
+            w = ref[cfg] if t is None else ref[cfg]["by_type"][t]
+            for m in ("p_at_5", "mrr", "ndcg", "hit_rate"):
+                if abs(g.get(m, -1.0) - w[m]) > METRIC_TOL:
+                    out.append((cfg, t, m, g.get(m), w[m]))
+    return out
+
+
+def ladder_orderings(s: dict) -> list[str]:
+    """The separation orderings of
+    ``tests/unit/evaluation/test_quality_separation.py`` that ``s``
+    breaks."""
+    eps = 1e-9
+    bt = {c: s[c]["by_type"] for c in s}
+    checks = {
+        "hybrid mrr > dense + 0.10":
+            s["hybrid"]["mrr"] > s["dense"]["mrr"] + 0.10,
+        "hybrid tag mrr >= 0.5": bt["hybrid"]["tag"]["mrr"] >= 0.5 - eps,
+        "dense tag mrr <= 0.2": bt["dense"]["tag"]["mrr"] <= 0.2 + eps,
+        "dense paraphrase mrr >= 0.6":
+            bt["dense"]["paraphrase"]["mrr"] >= 0.6 - eps,
+        "sparse paraphrase mrr <= 0.3":
+            bt["sparse"]["paraphrase"]["mrr"] <= 0.3 + eps,
+        "rerank pair ndcg >= hybrid's": bt["hybrid+rerank"]["pair"]["ndcg"]
+        >= bt["hybrid"]["pair"]["ndcg"] - eps,
+        "rerank pair mrr > hybrid's + 0.05": bt["hybrid+rerank"]["pair"][
+            "mrr"] > bt["hybrid"]["pair"]["mrr"] + 0.05,
+        "context p@5 > hybrid's + 0.05": bt["hybrid+context"]["context"][
+            "p_at_5"] > bt["hybrid"]["context"]["p_at_5"] + 0.05,
+        "prf mismatch p@5 > context's + 0.10": bt["hybrid+context+prf"][
+            "mismatch"]["p_at_5"] > bt["hybrid+context"]["mismatch"][
+            "p_at_5"] + 0.10,
+    }
+    for t in ("paraphrase", "tag", "pair"):
+        checks[f"context keeps {t} p@5"] = bt["hybrid+context"][t][
+            "p_at_5"] >= bt["hybrid"][t]["p_at_5"] - 0.05 - eps
+        checks[f"prf keeps {t} p@5"] = bt["hybrid+context+prf"][t][
+            "p_at_5"] >= bt["hybrid+context"][t]["p_at_5"] - 0.05 - eps
+    ladder = [s[c]["p_at_5"] for c in ("dense", "hybrid", "hybrid+context",
+                                       "hybrid+context+prf")]
+    checks["ladder monotone"] = all(b >= a - eps
+                                    for a, b in zip(ladder, ladder[1:]))
+    checks["not saturated"] = all(s[c]["p_at_5"] < 0.95
+                                  for c in ("dense", "sparse", "hybrid"))
+    checks["configs differ"] = len({round(s[c]["mrr"], 4) for c in (
+        "dense", "sparse", "hybrid", "hybrid+rerank")}) >= 3
+    return [name for name, ok in checks.items() if not ok]
+
+
+def eval_rag(device: str, samples: int):
+    """``AudioRAG`` with the eval-small stack on ``device`` (the generator
+    of :func:`eval_generator_config`), the extended corpus's 272 chunks
+    loaded through ``ingest_segments`` (one chunk a segment), and
+    ``samples`` samples of its eval set (the first paraphrase, tag and pair
+    questions in turn)."""
+    from audio_rag_tpu_torch.config import (
+        AudioRAGConfig,
+        ChunkingConfig,
+        EmbeddingConfig,
+        RerankingConfig,
+    )
+    from audio_rag_tpu_torch.core.types import TranscriptSegment
+    from audio_rag_tpu_torch.evaluation import EvalDataset
+    from audio_rag_tpu_torch.evaluation.corpus import (
+        extend_corpus,
+        make_corpus,
+    )
+    from audio_rag_tpu_torch.pipeline import AudioRAG
+
+    corpus = extend_corpus(make_corpus())
+    rag = AudioRAG(AudioRAGConfig(
+        embedding=EmbeddingConfig(model="eval-small"),
+        reranking=RerankingConfig(model="eval-small"),
+        generation=eval_generator_config(),
+        chunking=ChunkingConfig(min_chunk_tokens=1, overlap_tokens=0),
+        device=device))
+    rag.ingestion.ingest_segments([
+        TranscriptSegment(text=t, start=30.0 * i, end=30.0 * (i + 1),
+                          speaker=f"SPEAKER_{i % 2:02d}")
+        for i, t in enumerate(corpus.chunks)])
+    by_type = {t: [s for s in corpus.eval_set
+                   if s.metadata["type"] == t]
+               for t in ("paraphrase", "tag", "pair")}
+    picked = [by_type[t][i] for i in range(-(-samples // len(by_type)))
+              for t in by_type][:samples]
+    return rag, EvalDataset("corpus-eval-12", picked), len(corpus.chunks)
+
+
+def spy_generator(gen) -> list:
+    """Record each ``generate_batch`` call of ``gen``: (texts as encoded,
+    temperature, max_tokens, token ids)."""
+    calls = []
+    orig = gen.generate_batch
+
+    def spy(prompts, system=None, max_tokens=None, temperature=None):
+        res = orig(prompts, system=system, max_tokens=max_tokens,
+                   temperature=temperature)
+        texts = [f"{system}\n\n{p}" if system else p for p in prompts]
+        temp = gen.config.temperature if temperature is None else temperature
+        calls.append((texts, temp, max_tokens or gen.config.max_tokens,
+                      list(gen.last_token_ids)))
+        return res
+
+    gen.generate_batch = spy
+    return calls
+
+
+def phase_eval(torch, K, device: str = "cuda", n: int = EVAL_N,
+               samples: int = EVAL_SAMPLES) -> dict:
+    """(14) evaluation and speech output on the card, against the port's
+    CPU path in ``EVAL_WORKERS`` processes of their own: (a) the WER
+    harness's sets, (b) the TTS set, (c) the quality ladders, (d) the RAG
+    evaluator's quartet, (e) spoken answers. ``device="cpu"`` with small
+    ``n`` and ``samples`` rehearses it. Returns launches by path."""
+    import multiprocessing
+
+    import numpy as np
+
+    from audio_rag_tpu_torch.evaluation import RAGEvaluator, wer_sets
+    from audio_rag_tpu_torch.evaluation.quality import (
+        build_eval_setup_audio,
+        run_quality_sweep,
+    )
+
+    t0 = time.perf_counter()
+    card = card_line()
+    on_card = device == "cuda"
+    sets = wer_sets.make_sets(n)
+    tts_set = wer_sets.tts_texts(sets)
+    by_path: dict[str, dict] = {}
+    pool = multiprocessing.get_context("spawn").Pool(
+        EVAL_WORKERS, initializer=eval_worker_init)
+    try:
+        # the CPU references that need nothing of the card's, queued first
+        cpu_wer = {(p, w): [pool.apply_async(eval_cpu, ((
+            "wer", p, w, n, lo, min(lo + EVAL_CHUNK, hi)),))
+            for lo in range(0, hi, EVAL_CHUNK)]
+            for p, w, hi in (("f32", "charvoice", n), ("int8", "charvoice", n),
+                             ("f32", "stream", len(sets.stream_wavs)))}
+        cpu_tts = [pool.apply_async(eval_cpu, (("tts", t),)) for t in tts_set]
+        cpu_sweep = pool.apply_async(eval_cpu, (("sweep",),))
+
+        def path(name: str, fn):
+            K.reset_launches()
+            out = fn()
+            by_path[name] = launch_counts(K)
+            return out
+
+        with plain_calls(K, EVAL_KERNELS) as plain:
+            # (a) the WER sets, f32 (the record's) and int8
+            hyps, wall = {}, {}
+            for profile in ("f32", "int8"):
+                asr = wer_sets.tiny_asr(profile, device)
+                t1 = time.perf_counter()
+                hyps[(profile, "charvoice")] = path(
+                    f"eval[wer {profile}]",
+                    lambda: wer_sets.transcribe_all(asr, sets.wavs))
+                wall[profile] = time.perf_counter() - t1
+                if profile == "f32":
+                    hyps[("f32", "stream")] = path(
+                        "eval[wer f32 multi-window]",
+                        lambda: wer_sets.transcribe_all(asr,
+                                                        sets.stream_wavs))
+                    f32_asr = asr
+            print(f"eval[wer] card s: f32 {wall['f32']:.1f}, int8 "
+                  f"{wall['int8']:.1f}", flush=True)
+            # (b) the TTS set: synthesized, then transcribed
+            tts = eval_tts(device)
+            t1 = time.perf_counter()
+            pcm = path("eval[tts]", lambda: [tts._synthesize_pcm(t)
+                                             for t in tts_set])
+            tts_s = time.perf_counter() - t1
+            tts_hyps = path("eval[wer tts-rendered]",
+                            lambda: wer_sets.transcribe_all(f32_asr, pcm))
+            card_mels = [tts_mels(tts, t) for t in tts_set]
+            same_bits = (tts.synthesize(tts_set[0])
+                         == tts.synthesize(tts_set[0]))
+            # (c) the text sweep and the audio-in ladder
+            text_sweep = path("eval[sweep]",
+                              lambda: run_quality_sweep(device=device))
+            t1 = time.perf_counter()
+            engines, corpus = path("eval[audio ladder]",
+                                   lambda: build_eval_setup_audio(
+                                       device=device))
+            audio_sweep = run_quality_sweep(engines, corpus.eval_set)
+            audio_s = time.perf_counter() - t1
+            del engines
+            print(f"eval card s so far {time.perf_counter() - t0:.1f}",
+                  flush=True)
+            # (d) the RAG evaluator over AudioRAG, the quartet judged
+            rag, dataset, n_chunks = eval_rag(device, samples)
+            calls = spy_generator(rag.generator)
+            evaluator = RAGEvaluator(embedder=rag.embedder,
+                                     generator=rag.generator, device=device)
+            t1 = time.perf_counter()
+            results = path("eval[ragas]", lambda: evaluator.evaluate_dataset(
+                rag, dataset, search_types=["hybrid"], generate_answers=True,
+                compute_ragas=True))
+            ragas_s = time.perf_counter() - t1
+            summary = evaluator.summarize_results(results)["hybrid"]
+            # (e) spoken answers, the neural backend and the null tone
+            spoken = {}
+            for backend in ("jax", "null"):
+                rag.config.tts.backend = backend
+                rag.querying.unload()
+                spoken[backend] = path(f"eval[speak {backend}]",
+                                       lambda: rag.query(
+                                           dataset.samples[0].question,
+                                           generate_answer=True,
+                                           speak_answer=True))
+            peak = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                    else 0.0)
+
+        # the CPU's judges on the card's prompts: greedy calls in the
+        # workers, sampled ones here (their key hashes the prompts with
+        # this process's salt)
+        greedy = [c for c in calls if not c[1]]
+        cpu_judge = [pool.apply_async(eval_cpu, (("judge", c[0], c[2]),))
+                     for c in greedy]
+        from audio_rag_tpu_torch.generation.llm import LLMGenerator
+
+        host_gen = LLMGenerator(eval_generator_config(), device="cpu")
+        sampled_ref = []
+        for texts, temp, max_tokens, _ in (c for c in calls if c[1]):
+            host_gen.generate_batch(texts, max_tokens=max_tokens,
+                                    temperature=temp)
+            sampled_ref.append(host_gen.last_token_ids)
+        cpu_audio = [pool.apply_async(eval_cpu, (("vocode", m[0]["mel"]),))
+                     for m in card_mels[:2]]
+        ref_hyps = {k: sum((r.get() for r in v), []) for k, v in
+                    cpu_wer.items()}
+        ref_mels = [r.get() for r in cpu_tts]
+        ref_sweep = cpu_sweep.get()
+        ref_judge = [r.get() for r in cpu_judge]
+        ref_audio = [r.get() for r in cpu_audio]
+    finally:
+        pool.terminate()
+        pool.join()
+
+    # (a)
+    wer_rec = record("wer_tiny_synth.json")
+    for profile in ("f32", "int8"):
+        counts, cer_ = wer_sets.wer_stats(sets.texts,
+                                          hyps[(profile, "charvoice")])
+        print(f"eval[wer {profile}] charvoice WER {counts.wer:.4f} (record "
+              f"{wer_rec['value']}, JAX CPU, f32) CER {cer_:.4f} S/D/I "
+              f"{counts.substitutions}/{counts.deletions}/"
+              f"{counts.insertions} of {counts.n_ref} words, "
+              f"{len(sets.texts)} utterances in {wall[profile]:.2f} s "
+              f"({card})", flush=True)
+    stream, _ = wer_sets.wer_stats(sets.stream_refs,
+                                   hyps[("f32", "stream")])
+    print(f"eval[wer f32] multi-window WER {stream.wer:.4f} of "
+          f"{stream.n_ref} words (record "
+          f"{wer_rec['extra']['multi_window_stream']['wer']})", flush=True)
+    for key, got in hyps.items():
+        if got != ref_hyps[key]:
+            bad = [i for i, (a, b) in enumerate(zip(got, ref_hyps[key]))
+                   if a != b]
+            fail(f"eval[wer {key[0]} {key[1]}]: the card's hypotheses differ "
+                 f"from the CPU's at {bad}: {[got[i] for i in bad[:3]]} "
+                 f"against {[ref_hyps[key][i] for i in bad[:3]]}")
+    print(f"eval[wer] card = CPU hypotheses: f32 {n} + {len(sets.stream_wavs)}"
+          f" files, int8 {n}", flush=True)
+
+    # (b)
+    t_counts, t_cer = wer_sets.wer_stats(tts_set, tts_hyps)
+    frames = sum(int(m[0]["valid"].sum()) for m in card_mels)
+    print(f"eval[tts] {len(tts_set)} texts, one segment batch each, in "
+          f"{tts_s:.3f} s ({1e3 * tts_s / len(tts_set):.1f} ms a batch, "
+          f"{frames * 160 / 16000:.1f} s of speech); TTS-rendered WER "
+          f"{t_counts.wer:.4f} (record {wer_rec['extra']['tts_rendered']['wer']}"
+          f") CER {t_cer:.4f} of {t_counts.n_ref} words ({card})", flush=True)
+    worst, ties = 0.0, 0
+    for text, got, ref in zip(tts_set, card_mels, ref_mels):
+        for g, r in zip(got, ref):
+            parted = np.argwhere(g["dur"] != r["dur"])
+            for b, s_ in parted:
+                f = float(np.exp(r["log_dur"][b, s_]))
+                print(f"eval[tts] duration tie in {text!r} symbol {s_}: "
+                      f"CPU exp(log_dur) {f:.5f}, {r['dur'][b, s_]} against "
+                      f"{g['dur'][b, s_]}", flush=True)
+                if abs(f - np.floor(f) - 0.5) > 2 * f * 2 ** -8:
+                    fail(f"eval[tts]: a duration differs from the CPU's away "
+                         f"from a half-integer in {text!r}")
+                ties += 1
+            if not len(parted):
+                d = np.abs(g["mel"] - r["mel"])
+                worst = max(worst, float(d.max()))
+                if d.max() > TTS_MEL_MAX or d.mean() > TTS_MEL_MEAN:
+                    fail(f"eval[tts]: mel of {text!r} off the CPU's by "
+                         f"{d.max():.4f} (mean {d.mean():.5f})")
+    for m, ref in zip(card_mels, ref_audio):
+        from audio_rag_tpu_torch.models.tts import mel_to_audio
+
+        got = mel_to_audio(torch.from_numpy(m[0]["mel"]).to(device)).cpu() \
+            .numpy()
+        for row in range(got.shape[0]):
+            k = int(m[0]["valid"][row].sum()) * 160
+            gap = float(np.abs(got[row, :k] - ref[row, :k]).max())
+            corr = float(np.corrcoef(got[row, :k], ref[row, :k])[0, 1])
+            print(f"eval[tts] vocoder on one mel, card against CPU: max "
+                  f"|d| {gap:.2e} corr {corr:.8f}", flush=True)
+            if gap > TTS_AUDIO_MAX or corr < TTS_AUDIO_CORR:
+                fail(f"eval[tts]: the card's vocoder is off the CPU's: "
+                     f"{gap} {corr}")
+    print(f"eval[tts] mel card against CPU max |d| {worst:.4f}, duration "
+          f"ties {ties}; two card runs same bits: {same_bits}", flush=True)
+    if not same_bits:
+        fail("eval[tts]: two card runs of one text gave other bits")
+
+    # (c)
+    gaps = sweep_gaps(text_sweep, ref_sweep)
+    if gaps:
+        fail(f"eval[sweep]: the card's text sweep differs from the CPU's: "
+             f"{gaps[:6]}")
+    audio_rec = record("quality_audio_in.json")["sweep"]
+    for label, m in audio_sweep.items():
+        r = audio_rec[label]
+        print(f"eval[audio ladder] {label:>18} P@5 {m['p_at_5']:.4f} MRR "
+              f"{m['mrr']:.4f} NDCG {m['ndcg']:.4f} hit {m['hit_rate']:.4f}"
+              f" (record P@5 {r['p_at_5']} MRR {r['mrr']} NDCG "
+              f"{r['ndcg']})", flush=True)
+    print(f"eval[sweep] text sweep card = CPU within {METRIC_TOL}: hybrid "
+          f"{json.dumps({k: text_sweep['hybrid'][k] for k in ('p_at_5', 'mrr', 'ndcg')})}"
+          f"; audio ladder built in {audio_s:.1f} s", flush=True)
+    broken = ladder_orderings(audio_sweep)
+    if broken:
+        fail(f"eval[audio ladder]: orderings broken: {broken}")
+
+    # (d)
+    rag_rec = record("ragas_trained.json")["extra"]["averages"]
+    print(f"eval[ragas] {samples} samples over {n_chunks} chunks in "
+          f"{ragas_s:.1f} s, {len(calls)} generator calls: "
+          + ", ".join(f"{k} {summary.get(k, float('nan')):.4f} (record "
+                      f"{rag_rec[k]})" for k in rag_rec)
+          + f"; retrieval P@5 {summary['precision_at_k']:.4f} MRR "
+          f"{summary['mrr']:.4f} ({card})", flush=True)
+    parted = 0
+    for (texts, temp, max_tokens, ids), ref in zip(
+            greedy + [c for c in calls if c[1]], ref_judge + sampled_ref):
+        parted += check_header_calls(torch, "eval[ragas]", rag.generator,
+                                     [(texts, ids)], [(texts, ref)], temp,
+                                     max_tokens)
+    print(f"eval[ragas] the card's judge tokens = the CPU's in "
+          f"{len(calls) - parted} of {len(calls)} calls ({len(greedy)} "
+          f"greedy), {parted} parted at a near-tie", flush=True)
+    if set(summary) < {"faithfulness", "context_recall"}:
+        fail(f"eval[ragas]: no quartet: {summary}")
+
+    # (e)
+    for backend, out in spoken.items():
+        if out.audio is None or out.audio[8:12] != b"WAVE" or int.from_bytes(
+                out.audio[24:28], "little") != 22050:
+            fail(f"eval[speak {backend}]: no 22,050 Hz WAV")
+        print(f"eval[speak {backend}] {len(out.audio)} WAV bytes for a "
+              f"{len(out.answer.split())}-word answer, tts "
+              f"{out.stage_timings['tts']:.3f} s of "
+              f"{out.elapsed_s:.3f} s", flush=True)
+
+    if on_card:
+        for name, n_ in by_path.items():
+            print(f"{name} launches {json.dumps(n_)}", flush=True)
+        expect = {"eval[wer f32]": {FLASH}, "eval[wer int8]": {
+            FLASH, Q8W, CROSS8}, "eval[ragas]": {Q8W},
+            "eval[audio ladder]": {FLASH}}
+        for name, kernels in expect.items():
+            check_launches(name, by_path[name], kernels)
+        for name in ("eval[tts]", "eval[sweep]"):
+            if any(by_path[name].values()):
+                fail(f"{name}: kernels launched: {by_path[name]}")
+        if any(plain.values()):
+            fail(f"eval: plain versions were called on the card: {plain}")
+        print(f"eval peak {peak:.2f} GB ({card})", flush=True)
+    print(f"eval_s {time.perf_counter() - t0:.1f}", flush=True)
+    return by_path
+
+
 def large_v3_config(device: str, profile: str, window_batch: int,
                     **asr_fields):
     """The large-v3 paths' config: greedy at temperature 0 in English, as
@@ -4133,11 +4655,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
-                            "answer,stream,profiles,full,full_kv4,capacity,"
-                            "beam",
+                            "answer,stream,profiles,eval,full,full_kv4,"
+                            "capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
                          "diarize,fallback,query,answer,stream,profiles,"
-                         "full,full_kv4,capacity,beam")
+                         "eval,full,full_kv4,capacity,beam")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -4203,6 +4725,9 @@ def main() -> None:
     if "profiles" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             by_path.update(phase_profiles(torch, K, Path(tmp)))
+        free_card(torch)
+    if "eval" in phases:
+        by_path.update(phase_eval(torch, K))
         free_card(torch)
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)

@@ -426,9 +426,10 @@ def test_environment_is_read_at_each_call(monkeypatch):
 
 
 def test_unported_values_load_and_raise_where_used(tmp_path):
-    """A TTS backend, the fake store and checkpoint paths load (as the
-    schema holds them) and raise ``ConfigError`` where used; resources
-    load and raise nowhere."""
+    """The fake store and checkpoint paths load (as the schema holds them)
+    and raise ``ConfigError`` where used; a TTS backend without its engine
+    falls back as in the JAX package; resources load and raise
+    nowhere."""
     from audio_rag_tpu_torch.asr.whisper import WhisperASR
     from audio_rag_tpu_torch.embeddings.bge import BGEM3Embedder
     from audio_rag_tpu_torch.embeddings.e5 import E5Embedder
@@ -442,8 +443,15 @@ def test_unported_values_load_and_raise_where_used(tmp_path):
         "reranking": {"backend": "none"}})
     rag = AudioRAG(cfg)
     assert rag.status()["resources"]["budget_gb"] == 20.0
-    with pytest.raises(ConfigError, match="not ported"):
-        rag.query("x", speak_answer=True)
+    # "piper" without its engine falls back to fallback_backend ("null"),
+    # as the JAX pipeline's TTS chain does on the same config
+    from audio_rag_tpu.pipeline.query import QueryPipeline as JaxQuery
+
+    jax_query = JaxQuery(JaxConfig(tts={"backend": "piper"}))
+    assert type(rag.querying.tts).__name__ == type(jax_query.tts).__name__ \
+        == "NullTTS"
+    assert rag.querying.tts.synthesize("x y") == \
+        jax_query.tts.synthesize("x y")
     for make in (lambda: WhisperASR(cfg.asr, device="cpu"),
                  lambda: BGEM3Embedder(cfg.embedding, device="cpu"),
                  lambda: E5Embedder(cfg.embedding, device="cpu")):

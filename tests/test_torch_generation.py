@@ -516,11 +516,12 @@ def test_unload_all_stops_the_scheduler():
 
 
 def test_unported_modes_raise(monkeypatch):
-    """An LLM checkpoint and speech raise ``ConfigError`` naming what is
-    not ported, and so does the trained generator when its asset is
-    missing; the continuous batcher, the speculative program and PRF
-    expansion, ported since, build and answer instead (PRF's first pass
-    finds nothing in an empty collection, so the query stands); the
+    """An LLM checkpoint raises ``ConfigError`` naming what is not
+    ported, and so does the trained generator when its asset is
+    missing; the continuous batcher, the speculative program, PRF
+    expansion and speech, ported since, build and answer instead (PRF's
+    first pass finds nothing in an empty collection, so the query stands
+    and nothing is spoken); the
     config refuses unknown names; "none" and "fake" build as in the JAX
     package."""
     sg = create_generator(GenerationConfig(
@@ -551,9 +552,12 @@ def test_unported_modes_raise(monkeypatch):
         expansion=ExpansionConfig(backend="prf"), device="cpu"))
     out = rag.query("gradient", collection="c")
     assert out.expanded_query == "gradient" and not out.results
-    with pytest.raises(ConfigError, match="not ported"):
-        rag.query("gradient", collection="c", use_hyde=False,
-                  speak_answer=True)
+    # nothing retrieved, so no answer: the JAX pipeline speaks nothing and
+    # builds no TTS
+    out = rag.query("gradient", collection="c", use_hyde=False,
+                    speak_answer=True)
+    assert out.answer is None and out.audio is None
+    assert "tts" not in out.stage_timings and not rag.querying._tts_built
     assert isinstance(rag.generator, FakeGenerator)
     rag.unload_all()
     assert create_generator(GenerationConfig(backend="none")) is None

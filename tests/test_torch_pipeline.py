@@ -36,7 +36,6 @@ from audio_rag_tpu_torch.config import (
     load_config,
 )
 from audio_rag_tpu_torch.core import types as ttypes
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.embeddings.e5 import E5Embedder
 from audio_rag_tpu_torch.embeddings.fake import FakeEmbedder
 from audio_rag_tpu_torch.pipeline import AudioRAG
@@ -171,9 +170,14 @@ def test_answer_context_and_batch_match_jax(rags, wav_file):
     for g, r in zip(port.query_batch(["word0", "word7 word8"]),
                     ref.query_batch(["word0", "word7 word8"])):
         _assert_same_query(g, r)
-    # speech is not ported: the JAX pipeline answers with a WAV
-    with pytest.raises(ConfigError, match="not ported"):
-        port.query("word0", generate_answer=True, speak_answer=True)
+    # the spoken answer: the null backend's WAV, byte for byte the JAX
+    # pipeline's
+    got = port.query("word0", generate_answer=True, speak_answer=True)
+    want = ref.query("word0", generate_answer=True, speak_answer=True)
+    _assert_same_query(got, want)
+    assert got.audio is not None and got.audio == want.audio
+    assert set(got.stage_timings) == set(want.stage_timings)
+    assert "tts" in got.stage_timings
 
 
 def test_status_and_clear_collection_match_jax(rags, wav_file):

@@ -139,8 +139,8 @@ def test_query_batch_and_context_match_jax(reranking_rags):
 
 
 def test_llm_options_are_refused(reranking_rags):
-    """What the slice does not port raises ``ConfigError``: speech. HyDE's
-    sibling, pseudo-relevance feedback (on by default when the expansion
+    """Speech without an answer speaks nothing, as in the JAX package.
+    HyDE's sibling, pseudo-relevance feedback (on by default when the expansion
     backend names it), is ported: a query expanded by it gives the JAX
     package's expansion and results (both mine the default collection,
     empty here, so the query stands); an empty collection still
@@ -148,8 +148,10 @@ def test_llm_options_are_refused(reranking_rags):
     from audio_rag_tpu.config.schema import ExpansionConfig as JaxExpansion
 
     jax_rag, port, _ = reranking_rags
-    with pytest.raises(ConfigError, match="not ported"):
-        port.query(QUERIES[0], collection="slice", speak_answer=True)
+    # speech without an answer: neither pipeline speaks
+    for rag in (port, jax_rag):
+        assert rag.query(QUERIES[0], collection="slice",
+                         speak_answer=True).audio is None
     saved = port.config.expansion, jax_rag.config.expansion
     port.config.expansion = ExpansionConfig(backend="prf")
     jax_rag.config.expansion = JaxExpansion(backend="prf")
@@ -232,6 +234,8 @@ def test_sources_of_port_and_chip_smoke_import_no_jax():
     use of the JAX package's native library or its Makefile: the port
     builds its own copy of the C++ source."""
     files = [ROOT / "chip_smoke.py",
+             ROOT / "scripts" / "run_torch.py",
+             ROOT / "scripts" / "eval_torch.py",
              *sorted((ROOT / "audio_rag_tpu_torch").rglob("*.py"))]
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "audio_rag_tpu",
