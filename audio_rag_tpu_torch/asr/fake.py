@@ -34,6 +34,7 @@ class FakeASR:
         self.segment_seconds = segment_seconds
 
     is_loaded = True
+    hbm_required_gb = 0.0
 
     def load(self) -> None:
         pass

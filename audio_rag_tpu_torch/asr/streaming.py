@@ -150,6 +150,8 @@ class StreamingASR:
                     max_decode_tokens=self.streaming.max_decode_tokens)
             backend = WhisperASR(self.config, device)
         self.backend = backend
+        #: the backend's booking (the manager books the backend itself)
+        self.hbm_required_gb = backend.hbm_required_gb
         #: shared mux: chunks go through it and batch with other
         #: sessions'; the backend is then shared and never unloaded here
         self.mux = mux

@@ -68,6 +68,7 @@ from audio_rag_tpu_torch.config import ASRConfig
 from audio_rag_tpu_torch.core.exceptions import ConfigError, TranscriptionError
 from audio_rag_tpu_torch.core.types import TranscriptSegment, Word
 from audio_rag_tpu_torch.device import resolve_device
+from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
 from audio_rag_tpu_torch.models.whisper import (
     WHISPER_LANGUAGES,
     WHISPER_PRESETS,
@@ -87,6 +88,8 @@ from audio_rag_tpu_torch.models.whisper import (
 )
 from audio_rag_tpu_torch.ops import random as jrandom
 from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_batch
+from audio_rag_tpu_torch.resources.estimates import whisper_gb
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.utils.decorators import timed
 from audio_rag_tpu_torch.weights import whisper_params
 
@@ -136,6 +139,11 @@ class WhisperASR:
             8 if c.decoder_int8 else 0)
         self.lm_head_bits = (4 if self.decoder_bits == 8 and c.lm_head_int4
                              else None)
+        #: the manager's booking: the stored weights and the quantized
+        #: decoder copies (resources/estimates.py)
+        self.hbm_required_gb = whisper_gb(self.dims, self.dtype,
+                                          self.decoder_bits,
+                                          self.lm_head_bits)
         self._params = None
         self._params_q8 = None
         self.timings: dict[str, float] = {}
@@ -163,6 +171,8 @@ class WhisperASR:
                 "asr.checkpoint_path: converted Whisper checkpoints are not "
                 "ported (no converted checkpoint is in the repository)",
                 context={"checkpoint_path": self.config.checkpoint_path})
+        rm = get_resource_manager()
+        rm.ensure_hbm(self.hbm_required_gb, for_model="asr")
         tree = None
         if self.config.model_size == "tiny-synth":
             tree = load_npz_asset(ASSETS_DIR / "asr_tiny_synth.npz")
@@ -174,14 +184,25 @@ class WhisperASR:
         else:
             params = init_whisper(self.dims, seed=self.config.seed,
                                   device=self.device, dtype=self.dtype)
-        self._params = params
+        q8 = None
         if self.decoder_bits:
-            self._params_q8 = quantize_decoder_weights(
+            q8 = quantize_decoder_weights(
                 params, self.dims, self.decoder_bits, self.lm_head_bits)
+        get_engine(self.device).put_params("whisper", {"params": params,
+                                                       "q8": q8})
+        self._params, self._params_q8 = params, q8
+        rm.register_model("asr", self.hbm_required_gb, self)
 
     def unload(self) -> None:
-        """Drop the weights; the next use loads them again."""
+        """Drop the weights (the engine's record and the manager's booking
+        too); the next use loads them again."""
+        if not self.is_loaded:
+            return
+        engine = peek_engine()
+        if engine is not None:
+            engine.drop_params("whisper")
         self._params = self._params_q8 = None
+        get_resource_manager().unregister("asr")
 
     # -- public API --------------------------------------------------------
     def _max_new(self) -> int:
@@ -202,6 +223,7 @@ class WhisperASR:
                    language: str | None = None) -> list[TranscriptSegment]:
         if not self.is_loaded:
             self.load()
+        get_resource_manager().touch("asr")
         self._reset_timings()
         wav, sr = decode_audio(audio, sample_rate)
         if wav.size == 0:
@@ -323,6 +345,7 @@ class WhisperASR:
         of two. :attr:`timings` is set as :meth:`transcribe` sets it."""
         if not self.is_loaded:
             self.load()
+        get_resource_manager().touch("asr")
         self._reset_timings()
         wavs = [decode_audio(c, sample_rate)[0] for c in chunks]
         outs: list[list[TranscriptSegment]] = [[] for _ in wavs]

@@ -3,8 +3,11 @@ imports no YAML package).
 
 It reads block mappings nested by indentation (spaces), plain,
 single-quoted and double-quoted scalars, full-line and trailing comments
-(a ``#`` after a space, outside quotes), and flow sequences of scalars on
-one line (``fallback_temperatures: [0.2, 0.4]``). Scalars resolve as
+(a ``#`` after a space, outside quotes), flow sequences of scalars on
+one line (``fallback_temperatures: [0.2, 0.4]``), and a key's block
+sequence whose items are flow mappings of scalars on one line each
+(``queues:`` then ``- {name: high, timeout_s: 3600}``, as
+``configs/queue.yaml`` has it). Scalars resolve as
 PyYAML's ``safe_load`` resolves them (YAML 1.1): ``yes``/``no``/``on``/
 ``off``/``true``/``false`` in three casings are booleans, ``~``, ``null``
 and an empty value are None, ``14.0`` is a float but ``1e-3`` is a string
@@ -13,8 +16,8 @@ and a quoted scalar is always a string. Duplicate keys keep the last
 value, as ``safe_load`` does.
 
 Anything else raises ``ConfigError`` naming the file and the line: tabs,
-anchors, aliases and tags, block sequences (``- item``), flow mappings,
-block and multi-line scalars, complex keys, timestamps, merge keys and
+anchors, aliases and tags, block sequences of anything but one-line
+flow mappings, flow mappings elsewhere, block and multi-line scalars, complex keys, timestamps, merge keys and
 document markers. An empty file gives ``{}``; a root that is not a
 mapping raises.
 """
@@ -229,6 +232,71 @@ def _flow_sequence(s: str, i: int) -> tuple[list, int]:
         expect_item = False
 
 
+def _flow_scalar(s: str, i: int) -> tuple[Any, int]:
+    """A quoted or plain scalar inside a flow collection."""
+    if s[i] in "'\"":
+        return _quoted(s, i)
+    j = _plain_end(s, i, flow=True)
+    text = s[i:j].rstrip()
+    if not text:
+        return None, j
+    _check_plain_start(text)
+    return _resolve(text), j
+
+
+def _flow_mapping(s: str, i: int) -> tuple[dict, int]:
+    """``{key: scalar, ...}`` on one line, from its ``{`` at ``i``."""
+    out: dict = {}
+    i += 1
+    expect_item = True
+    while True:
+        while i < len(s) and s[i] == " ":
+            i += 1
+        if i >= len(s):
+            raise _Error("unterminated flow mapping (multi-line flow "
+                         "mappings are not supported)")
+        c = s[i]
+        if c == "}":
+            return out, i + 1
+        if c == ",":
+            if expect_item:
+                raise _Error("empty item in a flow mapping")
+            expect_item = True
+            i += 1
+            continue
+        if not expect_item:
+            raise _Error("missing ',' in a flow mapping")
+        if c in "[{":
+            raise _Error("only scalars are supported in a flow mapping")
+        key, i = _flow_scalar(s, i)
+        while i < len(s) and s[i] == " ":
+            i += 1
+        if s[i: i + 1] != ":":
+            raise _Error("expected 'key: value' in a flow mapping")
+        i += 1
+        while i < len(s) and s[i] == " ":
+            i += 1
+        if s[i: i + 1] in ("[", "{"):
+            raise _Error("only scalars are supported in a flow mapping")
+        value, i = (None, i) if s[i: i + 1] in (",", "}") else \
+            _flow_scalar(s, i)
+        out[key] = value
+        expect_item = False
+
+
+def _sequence_item(s: str, i: int) -> dict:
+    """The flow mapping of a ``- {...}`` line from column ``i``."""
+    j = i + 1
+    while j < len(s) and s[j] == " ":
+        j += 1
+    if s[j: j + 1] != "{":
+        raise _Error("a block sequence is supported only with one-line flow "
+                     "mappings as items")
+    item, j = _flow_mapping(s, j)
+    _rest_is_comment(s, j)
+    return item
+
+
 def _value(s: str, i: int) -> Any:
     """The value of a ``key: value`` line from column ``i`` (not empty)."""
     if s[i] in "'\"":
@@ -281,8 +349,11 @@ def parse_yaml(text: str, name: str = "<string>") -> dict[str, Any]:
     # (indent, mapping) from the root down; the root's indent is its
     # first key's
     stack: list[tuple[int | None, dict]] = [(None, root)]
-    # a key with nothing after its ':' (a nested mapping or None)
+    # a key with nothing after its ':' (a nested mapping, a sequence or
+    # None)
     pending: tuple[dict, Any, int] | None = None
+    # the block sequence being read and the column of its "-"
+    seq: tuple[list, int] | None = None
     for lineno, line in enumerate(text.splitlines(), 1):
         try:
             if "\t" in line:
@@ -294,6 +365,17 @@ def parse_yaml(text: str, name: str = "<string>") -> dict[str, Any]:
             if indent == 0 and body.startswith(("---", "...", "%")):
                 raise _Error("document markers and directives are not "
                              "supported")
+            if body == "-" or body.startswith("- "):
+                if pending is not None and indent >= pending[2]:
+                    parent, key, _ = pending
+                    pending = None
+                    seq = ([], indent)
+                    parent[key] = seq[0]
+                elif seq is None or indent != seq[1]:
+                    raise _Error("a block sequence is not supported here")
+                seq[0].append(_sequence_item(line, indent))
+                continue
+            seq = None
             if not _is_key_line(line, indent):
                 if body[0] not in "[{'\"":
                     _check_plain_start(body)

@@ -27,7 +27,11 @@ them at those defaults and refuses any other value.
 Values that name a feature the port has not got are held here and raise
 ``ConfigError`` where they are used: ``retrieval.backend`` "fake"
 (registered nowhere in the JAX package either) and any ``checkpoint_path`` (no converted checkpoint is read).
-``resources.*`` is held and read by nothing yet; ``embedding.normalize``
+``resources.max_hbm_gb`` and ``resources.pin_query_models`` set the
+device-memory manager's budget and pins (``AudioRAG``); the other
+``resources`` fields are held and read by nothing yet (the idle reaper of
+``unload_after_idle_seconds`` lives in the JAX package's API, not yet
+ported); ``embedding.normalize``
 is held and changes nothing (the JAX embedders normalize either way);
 ``alignment.method`` is held (the JAX aligner reads it nowhere either);
 ``log_level`` sets the level of the port's loggers.

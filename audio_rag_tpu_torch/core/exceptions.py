@@ -1,5 +1,5 @@
 """Error taxonomy of the PyTorch port: the subset of
-``audio_rag_tpu/core/exceptions.py`` that the ingest → query slice raises.
+``audio_rag_tpu/core/exceptions.py`` that the port raises.
 Names match the JAX package so callers catch the same types."""
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ __all__ = [
     "RetrievalError",
     "GenerationError",
     "TTSError",
+    "ResourceError",
 ]
 
 
@@ -25,6 +26,10 @@ class AudioRAGError(Exception):
         super().__init__(message)
         self.message = message
         self.context = context or {}
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"error": type(self).__name__, "message": self.message,
+                "context": self.context}
 
 
 class ConfigError(AudioRAGError):
@@ -53,3 +58,7 @@ class GenerationError(AudioRAGError):
 
 class TTSError(AudioRAGError):
     """Text-to-speech failure."""
+
+
+class ResourceError(AudioRAGError):
+    """The device-memory budget cannot hold a model."""

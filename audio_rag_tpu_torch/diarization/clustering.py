@@ -20,10 +20,12 @@ import torch
 
 from audio_rag_tpu_torch.asr.vad import VADOptions, speech_segments
 from audio_rag_tpu_torch.audio.io import decode_audio
+from audio_rag_tpu_torch.checkpoint import ASSETS_DIR
 from audio_rag_tpu_torch.config import DiarizationConfig
 from audio_rag_tpu_torch.core.types import TranscriptSegment
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.diarization.spectral import spectral_cluster
+from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
 from audio_rag_tpu_torch.models.speaker import (
     SPEAKER_PRESETS,
     SpeakerDims,
@@ -31,6 +33,8 @@ from audio_rag_tpu_torch.models.speaker import (
     speaker_embed,
 )
 from audio_rag_tpu_torch.ops.mel import log_mel_batch
+from audio_rag_tpu_torch.resources.estimates import speaker_gb
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.utils.decorators import timed
 
 __all__ = ["ClusteringDiarizer", "window_embeddings", "windows_to_segments"]
@@ -110,6 +114,12 @@ class ClusteringDiarizer:
         preset = (self.config.model if self.config.model in SPEAKER_PRESETS
                   else "titanet-jax")
         self.dims = SPEAKER_PRESETS[preset]
+        self._allow_asset = self.config.model != "test"
+        #: the manager's booking: the encoder that load() will take (the
+        #: committed asset's shape when it is there)
+        self.hbm_required_gb = speaker_gb(
+            SPEAKER_PRESETS["small"] if self._allow_asset
+            and (ASSETS_DIR / "speaker_small.npz").exists() else self.dims)
         self._params = None
         self.source: str | None = None
         self.timings: dict[str, float] = {}
@@ -121,9 +131,24 @@ class ClusteringDiarizer:
     def load(self) -> None:
         if self.is_loaded:
             return
-        self.dims, self._params, self.source = resolve_speaker_params(
+        rm = get_resource_manager()
+        rm.ensure_hbm(self.hbm_required_gb, for_model="diarization")
+        dims, params, self.source = resolve_speaker_params(
             self.config.checkpoint_path, self.dims,
-            allow_asset=self.config.model != "test", device=self.device)
+            allow_asset=self._allow_asset, device=self.device)
+        get_engine(self.device).put_params("speaker", params)
+        self.dims, self._params = dims, params
+        rm.register_model("diarization", self.hbm_required_gb, self)
+
+    def unload(self) -> None:
+        """Drop the encoder (and its booking); the next use loads it."""
+        if not self.is_loaded:
+            return
+        engine = peek_engine()
+        if engine is not None:
+            engine.drop_params("speaker")
+        self._params = None
+        get_resource_manager().unregister("diarization")
 
     def _spans_and_embeddings(self, audio, sample_rate):
         if not self.is_loaded:

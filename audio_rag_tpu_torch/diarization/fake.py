@@ -17,6 +17,7 @@ __all__ = ["FakeDiarizer"]
 
 class FakeDiarizer:
     is_loaded = True
+    hbm_required_gb = 0.0
 
     def __init__(self, config: DiarizationConfig | None = None,
                  n_speakers: int = 2, turn_seconds: float = 10.0,

@@ -17,8 +17,11 @@ from audio_rag_tpu_torch.config import EmbeddingConfig
 from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import EmbeddingResult, SparseVector
 from audio_rag_tpu_torch.device import resolve_device
+from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
 from audio_rag_tpu_torch.models.bert import BERT_PRESETS, BertDims
 from audio_rag_tpu_torch.models.bgem3 import bgem3_forward, init_bgem3
+from audio_rag_tpu_torch.resources.estimates import bgem3_gb
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer, pad_batch
 from audio_rag_tpu_torch.weights import bgem3_params
 from audio_rag_tpu_torch.utils.decorators import timed
@@ -41,6 +44,8 @@ class BGEM3Embedder:
         preset = {"test": "test", "eval-small": "retrieval-small"}.get(
             self.config.model, "xlmr-large")
         self.dims: BertDims = BERT_PRESETS[preset]
+        #: the manager's booking: the bf16 weights
+        self.hbm_required_gb = bgem3_gb(self.dims)
         self._params = None
         self._tok = HashWordTokenizer(self.dims.vocab)
 
@@ -56,21 +61,35 @@ class BGEM3Embedder:
                 "embedding.checkpoint_path: converted BGE-M3 checkpoints are "
                 "not ported (no converted checkpoint is in the repository)",
                 context={"checkpoint_path": self.config.checkpoint_path})
+        rm = get_resource_manager()
+        rm.ensure_hbm(self.hbm_required_gb, for_model="embeddings")
         tree = None
         if self.config.model == "eval-small":
             tree = load_npz_asset(ASSETS_DIR / "retr_embedder_small.npz")
         if tree is not None:
-            self._params = bgem3_params(tree, self.dims, self.device,
-                                        dtype=torch.bfloat16)
+            params = bgem3_params(tree, self.dims, self.device,
+                                  dtype=torch.bfloat16)
         else:
-            self._params = init_bgem3(self.dims, seed=self.config.seed,
-                                      device=self.device,
-                                      dtype=torch.bfloat16)
+            params = init_bgem3(self.dims, seed=self.config.seed,
+                                device=self.device, dtype=torch.bfloat16)
+        self._params = get_engine(self.device).put_params("bgem3", params)
+        rm.register_model("embeddings", self.hbm_required_gb, self)
+
+    def unload(self) -> None:
+        """Drop the weights (and their booking); the next use loads them."""
+        if not self.is_loaded:
+            return
+        engine = peek_engine()
+        if engine is not None:
+            engine.drop_params("bgem3")
+        self._params = None
+        get_resource_manager().unregister("embeddings")
 
     @timed
     def embed(self, texts: list[str]) -> list[EmbeddingResult]:
         if not self.is_loaded:
             self.load()
+        get_resource_manager().touch("embeddings")
         out: list[EmbeddingResult] = []
         bs = self.config.batch_size
         for i in range(0, len(texts), bs):

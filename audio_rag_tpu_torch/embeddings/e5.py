@@ -20,12 +20,15 @@ from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import EmbeddingResult
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.embeddings.bge import _bucket
+from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
 from audio_rag_tpu_torch.models.bert import (
     BERT_PRESETS,
     BertDims,
     bert_encode,
     init_bert,
 )
+from audio_rag_tpu_torch.resources.estimates import e5_gb
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, pad_batch
 from audio_rag_tpu_torch.utils.decorators import timed
 
@@ -53,6 +56,8 @@ class E5Embedder:
         self.device = resolve_device(device)
         preset = "test" if self.config.model == "test" else "xlmr-large"
         self.dims: BertDims = BERT_PRESETS[preset]
+        #: the manager's booking: the bf16 weights
+        self.hbm_required_gb = e5_gb(self.dims)
         self._params = None
         self._tok = get_tokenizer(self.dims.vocab)
 
@@ -68,10 +73,23 @@ class E5Embedder:
                 "embedding.checkpoint_path: converted E5 checkpoints are "
                 "not ported (no converted checkpoint is in the repository)",
                 context={"checkpoint_path": self.config.checkpoint_path})
+        rm = get_resource_manager()
+        rm.ensure_hbm(self.hbm_required_gb, for_model="embeddings")
         gen = torch.Generator(device=self.device).manual_seed(
             self.config.seed)
-        self._params = init_bert(self.dims, gen, self.device,
-                                 torch.bfloat16)
+        self._params = get_engine(self.device).put_params(
+            "e5", init_bert(self.dims, gen, self.device, torch.bfloat16))
+        rm.register_model("embeddings", self.hbm_required_gb, self)
+
+    def unload(self) -> None:
+        """Drop the weights (and their booking); the next use loads them."""
+        if not self.is_loaded:
+            return
+        engine = peek_engine()
+        if engine is not None:
+            engine.drop_params("e5")
+        self._params = None
+        get_resource_manager().unregister("embeddings")
 
     @torch.inference_mode()
     def _embed_prefixed(self, texts: list[str]) -> list[EmbeddingResult]:

@@ -23,6 +23,7 @@ __all__ = ["FakeEmbedder"]
 
 class FakeEmbedder:
     is_loaded = True
+    hbm_required_gb = 0.0
 
     def __init__(self, config: EmbeddingConfig | None = None,
                  dim: int = 256):

@@ -1,1 +1,2 @@
-"""The port's batched query engine."""
+"""The port's engine: the device ledger (``engine.py``), the batched query
+engine, the generation schedulers and the query coalescer."""

@@ -68,6 +68,12 @@ class _Request:
     on_delta: object | None = None
     emitted: str = ""
 
+    @property
+    def text(self) -> str:
+        """What the model reads: the system prompt, then the prompt."""
+        return (f"{self.system}\n\n{self.prompt}" if self.system
+                else self.prompt)
+
 
 @dataclass
 class _Slot:
@@ -175,10 +181,9 @@ class ContinuousBatcher:
         call; rows padded to a power of two by repeating row 0 (same slot,
         same keys and values)."""
         gen = self.generator
-        gen.load()
+        params, _ = gen.resident()
         tok, C = gen._tok, self._C
-        seqs = [tok.encode(f"{r.system}\n\n{r.prompt}" if r.system
-                           else r.prompt)[-(C - 8):] for r in reqs]
+        seqs = [tok.encode(r.text)[-(C - 8):] for r in reqs]
         R = len(reqs)
         Rb = 1 << max(R - 1, 0).bit_length()
         Pb = 1 << max(max(map(len, seqs)) - 1, 0).bit_length()
@@ -197,7 +202,7 @@ class ContinuousBatcher:
         self._rng_seed += 1
         dev = gen.device
         ck, cv, first = llm_prefill_slots(
-            gen._params, gen.dims, upload(prompts, torch.long, dev),
+            params, gen.dims, upload(prompts, torch.long, dev),
             upload(n_valid, torch.long, dev), ck, cv, slots, temps,
             jrandom.PRNGKey(self._rng_seed), dtype=gen.dtype)
         first = first.cpu().numpy()  # the admission's one readback
@@ -223,7 +228,8 @@ class ContinuousBatcher:
         self.requests_served += 1
         self.tokens_generated += len(ids)
         if not slot.request.future.done():
-            slot.request.future.set_result(tok.decode(ids).strip())
+            slot.request.future.set_result(tok.decode(
+                ids, tok.known_words(slot.request.text)).strip())
 
     def _dispatch_segment(self, chain: dict | None = None) -> dict:
         """Issue one segment and start its readback; the record goes to
@@ -243,11 +249,13 @@ class ContinuousBatcher:
         self._rng_seed += 1
         key = jrandom.PRNGKey(self._rng_seed)
         active_t = upload(active, torch.bool, dev)
-        q8 = gen._params_q8
+        # after an eviction the same seeded weights load again, so the
+        # slots' cache stays valid
+        params, q8 = gen.resident()
         if chain is not None:
             prev = chain["packed"]
             toks, ck, cv, pos, _ = llm_decode_slots(
-                gen._params, gen.dims, prev[:, self.segment - 1], ck, cv,
+                params, gen.dims, prev[:, self.segment - 1], ck, cv,
                 prev[:, self.segment], active_t, temps, key, seg,
                 gen._tok.eos_id, dtype=gen.dtype, q8=q8)
         elif self.spec_k > 0:
@@ -259,14 +267,14 @@ class ContinuousBatcher:
                     tail = ((s.history or []) + s.tokens)[-SPEC_HISTORY:]
                     hist[i, SPEC_HISTORY - len(tail):] = tail
             toks, ck, cv, pos, _ = llm_decode_slots_spec(
-                gen._params, gen.dims, upload(hist, torch.long, dev), ck,
+                params, gen.dims, upload(hist, torch.long, dev), ck,
                 cv, self._positions(dev), active_t, temps, key, seg,
                 gen._tok.eos_id, spec_k=self.spec_k, dtype=gen.dtype, q8=q8)
         else:
             last = upload([s.last_token if s else 0 for s in self._slots],
                           torch.long, dev)
             toks, ck, cv, pos, _ = llm_decode_slots(
-                gen._params, gen.dims, last, ck, cv, self._positions(dev),
+                params, gen.dims, last, ck, cv, self._positions(dev),
                 active_t, temps, key, seg, gen._tok.eos_id,
                 dtype=gen.dtype, q8=q8)
         self._cache = (ck, cv)
@@ -337,7 +345,8 @@ class ContinuousBatcher:
         ids = slot.tokens
         if tok.eos_id in ids:
             ids = ids[:ids.index(tok.eos_id)]
-        text = tok.decode(ids[:slot.max_new])
+        text = tok.decode(ids[:slot.max_new],
+                          tok.known_words(slot.request.text))
         delta = text[len(slot.request.emitted):]
         if delta:
             slot.request.emitted = text

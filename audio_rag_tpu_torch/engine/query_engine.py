@@ -38,6 +38,7 @@ from audio_rag_tpu_torch.ops.similarity import (
     sparse_scores,
     topk_with_mask,
 )
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.text.tokenizer import pad_batch
 from audio_rag_tpu_torch.utils.decorators import timed
 
@@ -105,6 +106,7 @@ class QueryEngine:
         corpus: (B, N). The sparse query is every real position's (token,
         weight), duplicates max-pooled inside ``sparse_scores``."""
         e = self.embedder
+        e.load()  # again, after an eviction
         mask = ids >= 0
         tokens = torch.where(mask, ids, torch.full_like(ids, e.dims.pad_id))
         dense, w = bgem3_forward(e._params, e.dims, tokens, mask.long())
@@ -162,6 +164,7 @@ class QueryEngine:
         coll = self.store._coll(self.collection)
         if coll is None or coll.count == 0:
             return [[] for _ in queries]
+        get_resource_manager().touch("embeddings")
         dev = coll.upload(self.store.device)
         # the embedder's rows: at most 64 tokens a query
         seqs = [self.embedder._tok.encode(q)[:64] for q in queries]

@@ -13,6 +13,7 @@ __all__ = ["FakeGenerator"]
 
 class FakeGenerator:
     is_loaded = True
+    hbm_required_gb = 0.0
 
     def __init__(self, config: GenerationConfig | None = None):
         self.config = config or GenerationConfig()

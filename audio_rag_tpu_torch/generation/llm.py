@@ -10,7 +10,12 @@ power-of-two prompt bucket, ``max_new`` cut to the window with a
 ``GenerationError`` when nothing is left, a power-of-two batch whose
 filler rows copy row 0, one key ``PRNGKey(abs(hash(tuple(texts))) %
 2**31)`` per batch (Python's string hash is salted per process, so sampled
-answers repeat only within one process), and EOS trimming.
+answers repeat only within one process), and EOS trimming. One departure:
+each answer decodes against its own request's words and the side file's
+(``HashWordTokenizer.known_words``), not against every word the tokenizer
+has encoded, so the same prompt gives the same text whatever else the
+process asked before (a reload after an eviction, the stage-grouped batch
+against the per-file loop).
 ``decoder_int8``/``decoder_int4``/``lm_head_int4`` quantize the decode
 step's linears once at load (int4 beating int8). A greedy single-row wave
 under ``speculative_k`` runs the speculative program
@@ -26,6 +31,7 @@ nothing falls back.
 
 from __future__ import annotations
 
+import threading
 from typing import Iterable
 
 import numpy as np
@@ -35,6 +41,7 @@ from audio_rag_tpu_torch.checkpoint import ASSETS_DIR
 from audio_rag_tpu_torch.config import GenerationConfig
 from audio_rag_tpu_torch.core.exceptions import ConfigError, GenerationError
 from audio_rag_tpu_torch.device import resolve_device
+from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
 from audio_rag_tpu_torch.engine.scheduler import word_chunks
 from audio_rag_tpu_torch.models.llm import (
     LLM_PRESETS,
@@ -45,6 +52,8 @@ from audio_rag_tpu_torch.models.llm import (
     quantize_llm_weights,
 )
 from audio_rag_tpu_torch.ops import random as jrandom
+from audio_rag_tpu_torch.resources.estimates import llm_gb
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, load_reverse_map
 from audio_rag_tpu_torch.utils.decorators import timed
 from audio_rag_tpu_torch.weights import load_llm_small
@@ -67,9 +76,16 @@ class LLMGenerator:
             8 if self.config.decoder_int8 else 0)
         self._lm_head_bits = 4 if (self._qbits
                                    and self.config.lm_head_int4) else None
+        #: the manager's booking: the bf16 weights and the quantized
+        #: decode-step copies
+        self.hbm_required_gb = llm_gb(self.dims, self.dtype, self._qbits,
+                                      self._lm_head_bits)
         self._params = None
         self._params_q8 = None
         self._tok = None
+        # guards the (params, q8) pair against an eviction between a
+        # reader's load and its read; never held across a manager call
+        self._state_lock = threading.Lock()
         #: generated ids per prompt of the last batch, EOS excluded
         self.last_token_counts: list[int] = []
         self.last_token_ids: list[list[int]] = []
@@ -92,6 +108,8 @@ class LLMGenerator:
                 "LLM checkpoints (restore_params) are not ported; leave "
                 "checkpoint_path unset",
                 context={"checkpoint_path": self.config.checkpoint_path})
+        rm = get_resource_manager()
+        rm.ensure_hbm(self.hbm_required_gb, for_model="generation")
         if self.model == "eval-small":
             params = load_llm_small(self.device, self.dtype)
             if params is None:
@@ -103,19 +121,45 @@ class LLMGenerator:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.config.seed)
             params = init_llm(self.dims, gen, self.dtype)
+        q8 = None
         if self._qbits:
-            self._params_q8 = quantize_llm_weights(
-                params, self.dims, self._qbits,
-                lm_head_bits=self._lm_head_bits)
-        self._tok = get_tokenizer(vocab_size=self.dims.vocab)
+            q8 = quantize_llm_weights(params, self.dims, self._qbits,
+                                      lm_head_bits=self._lm_head_bits)
+        tok = get_tokenizer(vocab_size=self.dims.vocab)
         if self.model == "eval-small":
             # the trained asset's emittable words: a fresh process decodes
             # only ids it has encoded without them
-            load_reverse_map(self._tok, ASSETS_DIR / "llm_small_vocab.json")
-        self._params = params
+            load_reverse_map(tok, ASSETS_DIR / "llm_small_vocab.json")
+        get_engine(self.device).put_params("llm", {"params": params,
+                                                   "q8": q8})
+        with self._state_lock:
+            self._tok, self._params_q8, self._params = tok, q8, params
+        rm.register_model("generation", self.hbm_required_gb, self)
 
     def unload(self) -> None:
-        self._params = self._params_q8 = self._tok = None
+        """Drop the weights (the engine's record and the manager's booking
+        too); the tokenizer, host memory, stays. A wave that already read
+        the weights keeps them until it ends."""
+        with self._state_lock:
+            if self._params is None:
+                return
+            self._params = self._params_q8 = None
+        engine = peek_engine()
+        if engine is not None:
+            engine.drop_params("llm")
+        get_resource_manager().unregister("generation")
+
+    def resident(self) -> tuple:
+        """(params, quantized copies) after loading them if needed, read
+        as one pair: an eviction in between makes it load again."""
+        while True:
+            self.load()
+            with self._state_lock:
+                if self._params is not None:
+                    pair = self._params, self._params_q8
+                    break
+        get_resource_manager().touch("generation")
+        return pair
 
     def check_availability(self) -> bool:
         return self.is_loaded
@@ -133,7 +177,7 @@ class LLMGenerator:
                        max_tokens: int | None = None,
                        temperature: float | None = None) -> list[str]:
         """Decode the prompts as one wave; answers in prompt order."""
-        self.load()
+        params, params_q8 = self.resident()
         if not prompts:
             return []
         texts = [f"{system}\n\n{p}" if system else p for p in prompts]
@@ -172,16 +216,16 @@ class LLMGenerator:
         spec = temp <= 0.0 and spec_k > 0 and B_pad == 1
         if spec:
             out, n_iter = llm_speculative_generate(
-                self._params, self.dims, prompt_t, max_new, pad_id,
+                params, self.dims, prompt_t, max_new, pad_id,
                 spec_k=spec_k, dtype=self.dtype, prompt_mask=mask_t,
-                decoder_q8=self._params_q8, stats=stats)
+                decoder_q8=params_q8, stats=stats)
         else:
             out = llm_generate(
-                self._params, self.dims, prompt_t, max_new, pad_id,
+                params, self.dims, prompt_t, max_new, pad_id,
                 temperature=float(temp),
                 rng=jrandom.PRNGKey(abs(hash(tuple(texts))) % (2 ** 31)),
                 dtype=self.dtype, prompt_mask=mask_t,
-                decoder_q8=self._params_q8, stats=stats)
+                decoder_q8=params_q8, stats=stats)
         out = out.cpu().numpy()
         results, counts, ids = [], [], []
         for i in range(B):
@@ -191,7 +235,10 @@ class LLMGenerator:
                 gen = gen[:eos[0]]
             counts.append(int(gen.size))
             ids.append(gen.tolist())
-            results.append(self._tok.decode(gen.tolist()).strip())
+            # the row's own words (and the side file's): the same prompt
+            # gives the same text whatever else the tokenizer has seen
+            results.append(self._tok.decode(
+                gen.tolist(), self._tok.known_words(texts[i])).strip())
         self.last_token_counts = counts
         self.last_token_ids = ids
         self.last_stats = {"rows": B_pad, "prompt_bucket": P, **stats}

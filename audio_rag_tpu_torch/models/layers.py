@@ -58,6 +58,7 @@ __all__ = [
     "q4_tiles",
     "q4_group",
     "quantize_linear_q4",
+    "quant_bytes",
     "linear_q8",
     "layer_norm",
     "sum_in_windows",
@@ -176,6 +177,17 @@ def quantize_linear_q4(w: torch.Tensor) -> Params:
     q = q.reshape(din, dout)
     packed = (q[0::2] & 0x0F) | (q[1::2] << 4)
     return {"w4": packed.to(torch.int8), "s": s}
+
+
+def quant_bytes(mats: list[tuple[int, int]], bits: int) -> int:
+    """Bytes of the :func:`quantize_linear` (``bits=8``) or
+    :func:`quantize_linear_q4` (``bits=4``) copies of (din, dout) weights,
+    their f32 scales included."""
+    w = sum(din * dout for din, dout in mats)
+    if bits == 8:
+        return w + 4 * sum(dout for _, dout in mats)
+    return w // 2 + 4 * sum((din // q4_group(din)) * dout
+                            for din, dout in mats)
 
 
 def linear_q8(p: Params, p8: Params, x: torch.Tensor,

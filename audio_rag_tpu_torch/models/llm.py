@@ -53,7 +53,7 @@ from audio_rag_tpu_torch.models.layers import (
     make_causal_mask,
     mha_init,
     mm_f32,
-    q4_group,
+    quant_bytes,
     quantize_linear,
     quantize_linear_q4,
     rms_norm,
@@ -298,19 +298,13 @@ def q8_param_bytes(dims: LLMDims, bits: int = 8,
                    lm_head_bits: int | None = None) -> int:
     """Bytes of the :func:`quantize_llm_weights` copies (weights and f32
     scales), which sit beside the bf16 parameters."""
-    def bytes_for(mats, b):
-        w = sum(din * dout for din, dout in mats)
-        if b == 8:
-            return w + 4 * sum(dout for _, dout in mats)
-        scales = sum((din // q4_group(din)) * dout for din, dout in mats)
-        return w // 2 + 4 * scales
-
     d = dims.d_model
     kv_d = dims.n_kv_heads * (d // dims.n_heads)
     block_mats = [(d, d + 2 * kv_d), (d, d), (d, 2 * dims.d_ff),
                   (dims.d_ff, d)] * dims.n_layers
     lm_bits = lm_head_bits if lm_head_bits is not None else bits
-    return bytes_for(block_mats, bits) + bytes_for([(d, dims.vocab)], lm_bits)
+    return (quant_bytes(block_mats, bits)
+            + quant_bytes([(d, dims.vocab)], lm_bits))
 
 
 def _qkv(p: Params, p8: Params | None, xn: torch.Tensor, dims: LLMDims,

@@ -50,6 +50,7 @@ from audio_rag_tpu_torch.models.layers import (
     mlp,
     mm_f32,
     mm_out_f32,
+    quant_bytes,
     quantize_linear,
     quantize_linear_q4,
     sinusoid_positions,
@@ -73,6 +74,7 @@ __all__ = [
     "precompute_cross_kv",
     "decoder_forward",
     "quantize_decoder_weights",
+    "q8_param_bytes",
     "pack_self_scales",
     "quantize_self_cache",
     "decoder_step",
@@ -555,6 +557,17 @@ def quantize_decoder_weights(params: Params, dims: WhisperDims,
     wt = F.pad(table.float().t(), (0, vocab_pad - vocab))
     head = quantize_linear if lm_bits == 8 else quantize_linear_q4
     return {"blocks": blocks, "logits": head(wt)}
+
+
+def q8_param_bytes(dims: WhisperDims, bits: int = 8,
+                   lm_head_bits: int | None = None) -> int:
+    """Bytes of the :func:`quantize_decoder_weights` copies (weights and
+    f32 scales), which sit beside the stored parameters."""
+    d = dims.n_text_state
+    mats = ([(d, d)] * 6 + [(d, 4 * d), (4 * d, d)]) * dims.n_text_layer
+    vocab_pad = -(-dims.n_vocab // 128) * 128
+    lm_bits = bits if lm_head_bits is None else lm_head_bits
+    return quant_bytes(mats, bits) + quant_bytes([(d, vocab_pad)], lm_bits)
 
 
 def pack_self_scales(ks: torch.Tensor, vs: torch.Tensor,

@@ -5,6 +5,12 @@ lazily on the configured device (CUDA by default; a CUDA request without a
 card raises), and the entry points ``from_config``, ``ingest`` (the JAX
 argument order), ``ingest_batch``, ``query``, ``query_batch``,
 ``get_context``, ``status``, ``clear_collection`` and ``unload_all``.
+
+Its backends book their device memory with the process-wide
+:class:`~audio_rag_tpu_torch.resources.manager.ResourceManager`, whose
+budget the pipeline sets from ``resources.max_hbm_gb``; under
+``resources.pin_query_models`` the embedder and the reranker are never
+evicted. A backend the manager evicted loads again at its next use.
 """
 
 from __future__ import annotations
@@ -14,15 +20,16 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
-import torch
 
 from audio_rag_tpu_torch.config import AudioRAGConfig, load_config
+from audio_rag_tpu_torch.engine.engine import get_engine
 from audio_rag_tpu_torch.pipeline.ingestion import (
     IngestionPipeline,
     IngestionResult,
 )
 from audio_rag_tpu_torch.pipeline.query import QueryPipeline, QueryResult
 from audio_rag_tpu_torch.pipeline.stages import SharedStages
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.utils.decorators import get_stage_timings
 from audio_rag_tpu_torch.utils.tracing import get_trace_summary
 
@@ -34,6 +41,11 @@ class AudioRAG(SharedStages):
         super().__init__(config)
         logging.getLogger("audio_rag_tpu_torch").setLevel(
             self.config.log_level)
+        rm = get_resource_manager(self.config.resources.max_hbm_gb)
+        if self.config.resources.pin_query_models:
+            # the query path's models stay while ingest swaps around them
+            rm.pin("embeddings")
+            rm.pin("reranking")
         self.ingestion = IngestionPipeline(stages=self)
         self.querying = QueryPipeline(stages=self)
 
@@ -85,15 +97,10 @@ class AudioRAG(SharedStages):
     # -- management ---------------------------------------------------------------
     def status(self) -> dict[str, Any]:
         """The JAX orchestrator's keys: the configured backends, the
-        device and its loaded stages, device memory, each collection's
-        count, the ``@timed`` registry and the span summary."""
+        engine's device and models, the manager's budget, bookings,
+        evictions and the card's memory, each collection's count, the
+        ``@timed`` registry and the span summary."""
         cfg = self.config
-        resources: dict[str, Any] = {"budget_gb": cfg.resources.max_hbm_gb}
-        if self.device.type == "cuda":
-            resources["device"] = {
-                "bytes_in_use": torch.cuda.memory_allocated(self.device),
-                "max_bytes_in_use":
-                    torch.cuda.max_memory_allocated(self.device)}
         return {
             "config": {
                 "asr": cfg.asr.backend,
@@ -105,17 +112,8 @@ class AudioRAG(SharedStages):
                 "reranking": cfg.reranking.backend,
                 "generation": cfg.generation.backend,
             },
-            "engine": {
-                "device": str(self.device),
-                "models": [name for name, stage in (
-                    ("asr", self.ingestion._asr),
-                    ("diarizer", self.ingestion._diarizer),
-                    ("embedder", self._embedder),
-                    ("generator", self._generator),
-                    ("reranker", self.querying._reranker))
-                    if stage is not None and stage.is_loaded],
-            },
-            "resources": resources,
+            "engine": get_engine(self.device).status(),
+            "resources": get_resource_manager().status(),
             "collections": {name: self.store.count(name)
                             for name in self.store.list_collections()},
             "stage_timings": get_stage_timings(),
@@ -132,11 +130,13 @@ class AudioRAG(SharedStages):
         return self.store.delete_collection(collection)
 
     def unload_all(self) -> None:
-        """Release every model the pipeline loaded, as the JAX
-        orchestrator's ``unload_all`` does: the generator's scheduler (the
-        wave thread, or the continuous batcher's thread and its cache)
-        stops and its weights go, the TTS backend's too, and each stage is
-        built anew on its next use. The store stays."""
+        """Release every model, as the JAX orchestrator's ``unload_all``
+        does: the manager unloads every backend it booked; then what only
+        the port holds goes too: the generator's scheduler (the wave
+        thread, or the continuous batcher's thread and its cache) stops,
+        the TTS backend unloads, and each stage is built anew on its next
+        use. The store stays."""
+        get_resource_manager().unload_all()
         self.unload_shared()
         self.ingestion.unload()
         self.querying.unload()

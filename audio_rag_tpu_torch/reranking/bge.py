@@ -22,12 +22,15 @@ from audio_rag_tpu_torch.config import RerankingConfig
 from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import RetrievalResult
 from audio_rag_tpu_torch.device import resolve_device
+from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
 from audio_rag_tpu_torch.models.bert import BERT_PRESETS, BertDims
 from audio_rag_tpu_torch.models.cross_encoder import (
     cross_encoder_forward,
     init_cross_encoder,
 )
 from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer, pad_batch
+from audio_rag_tpu_torch.resources.estimates import cross_encoder_gb
+from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.weights import cross_encoder_params
 from audio_rag_tpu_torch.utils.decorators import timed
 
@@ -56,6 +59,8 @@ class BGEReranker:
         preset = {"test": "test", "eval-small": "retrieval-small"}.get(
             self.config.model, "xlmr-base")
         self.dims: BertDims = BERT_PRESETS[preset]
+        #: the manager's booking: the bf16 weights
+        self.hbm_required_gb = cross_encoder_gb(self.dims)
         self._params = None
         self._tok = HashWordTokenizer(self.dims.vocab)
         #: compute dtype: bf16, as the JAX reranker; f32 (the stored bf16
@@ -74,16 +79,30 @@ class BGEReranker:
                 "reranker checkpoints (restore_params) are not ported; "
                 "leave checkpoint_path unset",
                 context={"checkpoint_path": self.config.checkpoint_path})
+        rm = get_resource_manager()
+        rm.ensure_hbm(self.hbm_required_gb, for_model="reranking")
         tree = None
         if self.config.model == "eval-small":
             tree = load_npz_asset(ASSETS_DIR / "retr_reranker_small.npz")
         if tree is not None:
-            self._params = cross_encoder_params(tree, self.dims, self.device,
-                                                dtype=torch.bfloat16)
+            params = cross_encoder_params(tree, self.dims, self.device,
+                                          dtype=torch.bfloat16)
         else:
-            self._params = init_cross_encoder(
+            params = init_cross_encoder(
                 self.dims, seed=self.config.seed, device=self.device,
                 dtype=torch.bfloat16)
+        self._params = get_engine(self.device).put_params("reranker", params)
+        rm.register_model("reranking", self.hbm_required_gb, self)
+
+    def unload(self) -> None:
+        """Drop the weights (and their booking); the next use loads them."""
+        if not self.is_loaded:
+            return
+        engine = peek_engine()
+        if engine is not None:
+            engine.drop_params("reranker")
+        self._params = None
+        get_resource_manager().unregister("reranking")
 
     @property
     def max_len(self) -> int:
@@ -94,6 +113,9 @@ class BGEReranker:
     def forward_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """(B, T) pair rows, −1 at padding (holes inside a row included),
         on the device → (B,) f32 logits on the device."""
+        if not self.is_loaded:
+            self.load()
+        get_resource_manager().touch("reranking")
         mask = (ids >= 0).long()
         tokens = torch.where(mask.bool(), ids,
                              torch.full_like(ids, self.dims.pad_id))

@@ -14,6 +14,7 @@ __all__ = ["FakeReranker"]
 
 class FakeReranker:
     is_loaded = True
+    hbm_required_gb = 0.0
 
     def __init__(self, config: RerankingConfig | None = None):
         self.config = config or RerankingConfig()

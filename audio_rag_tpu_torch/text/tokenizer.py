@@ -34,8 +34,9 @@ def norm_tokens(text: str) -> list[str]:
 class HashWordTokenizer:
     """ids: 0=pad, 1=cls/bos, 2=sep/eos, 3=unk; words hash into
     [n_special, vocab). ``decode`` reads the reverse map of the words this
-    instance has encoded (and of a side file, :func:`load_reverse_map`);
-    an id it has not seen decodes as ``<unk>``."""
+    instance has encoded (and of a side file, :func:`load_reverse_map`),
+    or the map it is given (:meth:`known_words`); an id it has not seen
+    decodes as ``<unk>``."""
 
     n_special = 4
 
@@ -47,6 +48,8 @@ class HashWordTokenizer:
         self.unk_id = 3
         self.eos_id = self.sep_id
         self._reverse: dict[int, str] = {}
+        #: the side file's id → word entries (:func:`load_reverse_map`)
+        self._side: dict[int, str] = {}
 
     def _word_id(self, word: str) -> int:
         h = hashlib.blake2s(word.encode(), digest_size=8).digest()
@@ -65,13 +68,24 @@ class HashWordTokenizer:
             return [self.cls_id, *ids, self.sep_id]
         return ids
 
-    def decode(self, ids: Sequence[int]) -> str:
+    def decode(self, ids: Sequence[int],
+               known: dict[int, str] | None = None) -> str:
+        rev = self._reverse if known is None else known
         words = [
-            self._reverse.get(int(i), "<unk>")
+            rev.get(int(i), "<unk>")
             for i in ids
             if int(i) >= self.n_special
         ]
         return " ".join(words)
+
+    def known_words(self, text: str) -> dict[int, str]:
+        """The reverse map of the side file's words and then ``text``'s: a
+        decode map that does not depend on what else this instance has
+        encoded."""
+        known = dict(self._side)
+        for w in self.tokenize_words(text):
+            known.setdefault(self._word_id(w), w)
+        return known
 
     def encode_pair(self, a: str, b: str, max_len: int) -> list[int]:
         """RoBERTa pair layout: <s> a </s></s> b </s>, truncating ``b``."""
@@ -100,6 +114,7 @@ def load_reverse_map(tok: HashWordTokenizer, path: str | Path) -> int:
     side = json.loads(p.read_text())
     for k, v in side.items():
         tok._reverse.setdefault(int(k), v)
+        tok._side.setdefault(int(k), v)
     return len(side)
 
 

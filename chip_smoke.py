@@ -178,7 +178,30 @@ subset):
               4-7 and every plain version not at all. Prints each file's
               stage seconds, the batch's wall time against the loop's and
               the peak memory beside the card's name and power limit.
-14. eval    — evaluation and speech output, on the card against the
+              Runs under the profile's device-memory ledger
+              (``resources.max_hbm_gb`` 14 GB: large-v3 and llama-3.2-3b
+              cannot both be booked), and prints each run's evictions,
+              each unload's and load's seconds, each load's estimate
+              beside the allocation it measured, and peak allocated and
+              reserved memory; every eviction must free at least 90 % of
+              the bytes the engine recorded for the model;
+14. queue   — the job queue on profiles' pipeline and files:
+              configs/queue.yaml through the port's YAML reader (the
+              database in the phase's directory), the three files enqueued
+              with validation at priorities low, normal and high, one job
+              sent twice under one idempotency key (``DuplicateJobError``),
+              one extra job cancelled, then ``GPUWorker.start(max_jobs=3)``
+              with heartbeats: the three jobs complete, claimed high
+              first, as one stage-grouped batch (``batch_claim`` 4), the
+              cancelled one never runs, the stored chunks are profiles'
+              batch's, the heartbeat row carries platform "cuda" and the
+              card's bytes in use, each eviction frees at least 90 % of
+              the model's recorded bytes, rows 1-3 launch and no plain
+              version runs; ``requeue_stale`` requeues a job claimed by a
+              worker without heartbeats. Prints the drain's wall beside
+              profiles' batch, evictions and swap seconds, peak memory,
+              ``status()["resources"]`` and the launches;
+15. eval    — evaluation and speech output, on the card against the
               port's CPU path in three worker processes of the script's
               own: (a) the WER harness's held-out sets on the trained tiny
               ASR (64 charvoice utterances from ``default_rng(777)`` in
@@ -209,8 +232,11 @@ g++ into ``build/native/``) is built or loaded right after the kernels;
 the script fails without it, so the word-time DTW of every ingest runs in
 C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
 ``query`` after ``fallback``, ``answer`` after ``query``, ``stream``
-after ``answer``, ``profiles`` after ``stream``, ``eval`` after
-``profiles``. The ``answer`` phase's
+after ``answer``, ``profiles`` after ``stream``, ``queue`` after
+``profiles`` (it needs profiles' pipeline), ``eval`` after ``queue``.
+At each phase's end the device-memory manager unloads what it booked and
+a fresh manager and engine replace it (:func:`free_card`). The
+``answer`` phase's
 generator settings and the ``stream`` phase's buffering are read from
 configs/production.yaml and configs/low_latency.yaml through the port's
 loader.
@@ -3510,16 +3536,52 @@ def q8w_widths(K):
         K.matmul_q8w = wrapper
 
 
-def run_profiles(torch, K, device: str, workdir: Path,
-                 rehearse: dict | None = None) -> dict:
-    """The phase's work: from_config(env="production") → ingest_batch with
-    headers → queries, then the per-file loop, a checkpointed ingest
-    resumed from "aligned" with an ASR that raises, ``status()`` and
-    ``clear_collection``. ``rehearse`` (AUDIO_RAG__ values) shrinks the
-    models for a CPU rehearsal. Returns what it measured."""
+def ledger_events(rm, start: int) -> list[dict]:
+    """The manager's load and eviction events from ``start`` on."""
+    return [dict(e) for e in rm.events[start:]]
+
+
+def print_ledger(tag: str, events: list[dict], card: str) -> None:
+    """A run's evictions, each swap's unload and (re)load seconds, and each
+    load's estimate beside the allocation change it measured."""
+    ev = [e for e in events if e["kind"] == "evict"]
+    print(f"{tag} evictions {len(ev)}: " + json.dumps(
+        [(e["name"], round(e["seconds"], 4),
+          None if e["allocated_delta"] is None
+          else round(-e["allocated_delta"] / 1e9, 4),
+          round(-e["engine_delta"] / 1e9, 4)) for e in ev])
+        + " (name, unload s, GB freed on the card, GB the engine had; "
+        f"{card})", flush=True)
+    loads = [e for e in events if e["kind"] == "load"]
+    print(f"{tag} loads {len(loads)}: " + json.dumps(
+        [(e["name"], round(e["seconds"], 3), round(e["gb"], 4),
+          None if e["allocated_delta"] is None
+          else round(e["allocated_delta"] / 1e9, 4)) for e in loads])
+        + f" (name, load s, estimate GB, GB allocated by the load; {card})",
+        flush=True)
+
+
+def check_evictions(tag: str, events: list[dict]) -> None:
+    """Fail unless each eviction gave back at least 90 % of the bytes the
+    engine had recorded for the model (a reference left behind keeps a
+    model alive)."""
+    for e in events:
+        if e["kind"] != "evict" or e["allocated_delta"] is None:
+            continue
+        if -e["engine_delta"] <= 0:
+            fail(f"{tag}: the eviction of {e['name']} dropped nothing from "
+                 f"the engine: {e}")
+        if -e["allocated_delta"] < 0.9 * -e["engine_delta"]:
+            fail(f"{tag}: the eviction of {e['name']} freed "
+                 f"{-e['allocated_delta'] / 1e9:.4f} GB of the "
+                 f"{-e['engine_delta'] / 1e9:.4f} GB it held")
+
+
+def production_rag(device: str, workdir: Path, rehearse: dict | None):
+    """``AudioRAG.from_config(env="production")`` with the run's settings
+    (``rehearse``: AUDIO_RAG__ values that shrink the models for a CPU
+    rehearsal), its values checked."""
     from audio_rag_tpu_torch.pipeline import AudioRAG
-    from audio_rag_tpu_torch.utils.decorators import reset_stage_timings
-    from audio_rag_tpu_torch.utils.tracing import reset_traces
 
     persist = workdir / "collections"
     values = {**PROFILE_ENV, "AUDIO_RAG__RETRIEVAL__PERSIST_DIR":
@@ -3530,30 +3592,56 @@ def run_profiles(torch, K, device: str, workdir: Path,
     check_production(rag.config, persist, full=not rehearse)
     if str(rag.device) != device and rag.device.type != device:
         fail(f"profiles: AudioRAG runs on {rag.device}, not {device}")
+    return rag
+
+
+def run_profiles(torch, K, device: str, workdir: Path,
+                 rehearse: dict | None = None,
+                 budget_gb: float | None = None) -> dict:
+    """The phase's work: from_config(env="production") → ingest_batch with
+    headers → queries, then the per-file loop, a checkpointed ingest
+    resumed from "aligned" with an ASR that raises, ``status()`` and
+    ``clear_collection``, all under the profile's device-memory ledger
+    (``budget_gb`` replaces its 14 GB, for a CPU rehearsal that evicts).
+    ``rehearse`` (AUDIO_RAG__ values) shrinks the models for a CPU
+    rehearsal. Returns what it measured, with the pipeline (``rag``,
+    loaded) and the files for the queue phase."""
+    from audio_rag_tpu_torch.resources.manager import get_resource_manager
+    from audio_rag_tpu_torch.utils.decorators import reset_stage_timings
+    from audio_rag_tpu_torch.utils.tracing import reset_traces
+
+    rag = production_rag(device, workdir, rehearse)
+    rm = get_resource_manager()
+    if budget_gb is not None:
+        rm.max_hbm_gb = budget_gb
     files = profile_files(workdir)
     reset_stage_timings()
     reset_traces()
     t0 = time.perf_counter()
+    n0 = len(rm.events)
     for stage in ("asr", "diarizer", "embedder", "generator", "reranker"):
         getattr(rag, stage)  # loaded outside the timed runs
     sync(torch, device)
-    out = {"load_s": time.perf_counter() - t0}
+    out = {"load_s": time.perf_counter() - t0, "rag": rag, "files": files,
+           "budget_gb": rm.max_hbm_gb, "load_events": ledger_events(rm, n0)}
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
     def timed_run(tag, fn):
         K.reset_launches()
+        n0 = len(rm.events)
         with q8w_widths(K) as widths, plain_calls(K, K.KERNELS) as plain:
             t0 = time.perf_counter()
             results = fn()
             sync(torch, device)
             wall = time.perf_counter() - t0
+            events = ledger_events(rm, n0)
             tops = top5(rag, tag)
             sync(torch, device)
         out[tag] = {"wall_s": wall, "results": results, "tops": tops,
                     "rows": stored_rows(rag, tag),
                     "launches": launch_counts(K), "q8w_widths": dict(widths),
-                    "plain_calls": dict(plain)}
+                    "plain_calls": dict(plain), "events": events}
 
     # (b) the staged batch, then the per-file loop; the loop's first file
     # is checkpointed, for (c)
@@ -3587,25 +3675,30 @@ def run_profiles(torch, K, device: str, workdir: Path,
         : out["loop"]["results"][0].num_chunks]
     if device == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
     # (d)
     out["status"] = rag.status()
     out["counts"] = {c: rag.count(c) for c in ("batch", "loop", "resumed")}
     out["cleared"] = {c: (rag.clear_collection(c), rag.count(c))
                       for c in ("batch", "loop", "resumed")}
-    rag.unload_all()
     return out
 
 
 def phase_profiles(torch, K, workdir: Path) -> dict:
     """(13) configs/production.yaml through ``from_config`` at full width
-    (seeded weights): three 30 s files through ``ingest_batch`` with 3b
-    headers (stage-grouped) and through the per-file loop (the same
-    chunks and top 5), resume from a checkpoint, ``status()``; launches
-    checked. Returns launches by path."""
+    (seeded weights) under its 14 GB device-memory ledger: three 30 s
+    files through ``ingest_batch`` with 3b headers (stage-grouped) and
+    through the per-file loop (the same chunks and top 5), resume from a
+    checkpoint, ``status()``; launches checked; evictions, swap seconds,
+    estimates against allocations and peak memory printed. Returns
+    launches by path ("launches"), the loaded pipeline ("rag"), the files
+    and the batch run for the queue phase."""
     t0 = time.perf_counter()
     out = run_profiles(torch, K, "cuda", workdir)
     card = card_line()
     batch, loop = out["batch"], out["loop"]
+    print_ledger(f"profiles[load] (budget {out['budget_gb']} GB)",
+                 out["load_events"], card)
     for tag, run in (("batch", batch), ("loop", loop)):
         for i, res in enumerate(run["results"]):
             print(f"profiles[{tag}] file {i} chunks {res.num_chunks} "
@@ -3614,10 +3707,13 @@ def phase_profiles(torch, K, workdir: Path) -> dict:
         print(f"profiles[{tag}] wall_s {run['wall_s']:.3f} launches "
               f"{json.dumps(run['launches'])} matmul_q8w by din "
               f"{json.dumps(run['q8w_widths'])} ({card})", flush=True)
+        print_ledger(f"profiles[{tag}]", run["events"], card)
+        check_evictions(f"profiles[{tag}]", run["events"])
     print(f"profiles load_s {out['load_s']:.1f} batch/loop wall "
           f"{batch['wall_s']:.3f} / {loop['wall_s']:.3f} s "
-          f"({batch['wall_s'] / loop['wall_s']:.3f}x) peak "
-          f"{out['peak_mem_gb']:.2f} GB ({card})", flush=True)
+          f"({batch['wall_s'] / loop['wall_s']:.3f}x) peak allocated "
+          f"{out['peak_mem_gb']:.2f} GB, reserved "
+          f"{out['peak_reserved_gb']:.2f} GB ({card})", flush=True)
     print("profiles batch chunks (text's first 60 characters, speaker, "
           "start, end)", json.dumps([(t[:60], *rest) for t, *rest in
                                      batch["rows"]]), flush=True)
@@ -3676,11 +3772,218 @@ def phase_profiles(torch, K, workdir: Path) -> dict:
         fail(f"profiles: status() traces lack {missing}")
     if any(ok is not True or n for ok, n in out["cleared"].values()):
         fail(f"profiles: clear_collection left {out['cleared']}")
+    for key in ("engine", "resources"):
+        if not st[key].get("models"):
+            fail(f"profiles: status()[{key!r}] books no model: {st[key]}")
     print(f"profiles status {json.dumps({k: st[k] for k in ('config', 'engine', 'resources', 'collections')})}",
           flush=True)
     print(f"profiles_s {time.perf_counter() - t0:.1f}", flush=True)
-    return {"profiles[batch]": batch["launches"],
-            "profiles[loop]": loop["launches"]}
+    return {"launches": {"profiles[batch]": batch["launches"],
+                         "profiles[loop]": loop["launches"]},
+            "rag": out["rag"], "files": out["files"], "batch": batch}
+
+
+# -- queue: the job queue drains profiles' files -----------------------------------------
+
+QUEUE_PRIORITIES = ("LOW", "NORMAL", "HIGH")  # profiles' files, in order
+
+
+def rows_by_source(rag, collection: str) -> dict:
+    """A collection's chunks (text, speaker, start, end) by source file."""
+    out: dict = {}
+    for p in rag.store._coll(collection).payloads:
+        out.setdefault(p["metadata"]["source"], []).append(
+            (p["text"], p["speaker"], round(float(p["start"]), 3),
+             round(float(p["end"]), 3)))
+    return out
+
+
+def run_queue(torch, K, device: str, rag, files: list[str],
+              workdir: Path) -> dict:
+    """The queue phase's work on profiles' pipeline and files:
+    configs/queue.yaml through the port's reader (the database in
+    ``workdir``); the three files enqueued with validation at priorities
+    low, normal and high into collection "queue"; one job sent twice
+    under one idempotency key; one extra job cancelled; the drain by
+    ``GPUWorker(...).start(max_jobs=3)`` with heartbeats; then a job
+    claimed by a worker without heartbeats, requeued by the reaper.
+    Returns what it measured."""
+    from audio_rag_tpu_torch.jobqueue import (
+        AudioRAGQueue, IngestJob, JobStatus)
+    from audio_rag_tpu_torch.jobqueue.config import load_queue_config
+    from audio_rag_tpu_torch.jobqueue.exceptions import DuplicateJobError
+    from audio_rag_tpu_torch.jobqueue.store import JobStore
+    from audio_rag_tpu_torch.jobqueue.worker import GPUWorker
+    from audio_rag_tpu_torch.resources.manager import get_resource_manager
+
+    cfg = load_queue_config(ROOT / "configs" / "queue.yaml")
+    cfg.storage.db_path = str(workdir / "queue.db")
+    store = JobStore(cfg.storage.db_path)
+    queue = AudioRAGQueue(cfg, store=store)
+    out: dict = {"batch_claim": cfg.worker.batch_claim}
+    jids = [queue.enqueue(IngestJob(f"tenant-{i}", f, priority=prio,
+                                    collection="queue"))
+            for i, (f, prio) in enumerate(zip(files, QUEUE_PRIORITIES))]
+    try:
+        queue.enqueue(IngestJob("tenant-0", files[0], priority="HIGH",
+                                collection="queue"))
+        out["duplicate"] = "accepted"
+    except DuplicateJobError as exc:
+        out["duplicate"] = exc.existing_job_id
+    extra = queue.enqueue(IngestJob("tenant-extra", files[1],
+                                    collection="queue"))
+    queue.cancel(extra)
+
+    claims, beats, batches = [], [], []
+    claim, beat = store.claim_next, store.heartbeat
+
+    def claim_spy(wid, queues=None):
+        job = claim(wid, queues)
+        if job is not None:
+            claims.append(job.job_id)
+        return job
+
+    def beat_spy(wid, info):
+        beat(wid, info)
+        beats.append(store.live_workers(cfg.worker.heartbeat_ttl_s)[wid])
+
+    ingest_batch = rag.ingestion.ingest_batch
+
+    def batch_spy(audios, *a, **kw):
+        batches.append(list(audios))
+        return ingest_batch(audios, *a, **kw)
+
+    store.claim_next, store.heartbeat = claim_spy, beat_spy
+    rag.ingestion.ingest_batch = batch_spy
+    rm = get_resource_manager()
+    n0 = len(rm.events)
+    K.reset_launches()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    worker = GPUWorker(cfg, store, rag_factory=lambda: rag)
+    try:
+        with plain_calls(K, K.KERNELS) as plain:
+            t0 = time.perf_counter()
+            worker.start(max_jobs=3)
+            sync(torch, device)
+            out["drain_s"] = time.perf_counter() - t0
+    finally:
+        store.claim_next, store.heartbeat = claim, beat
+        del rag.ingestion.ingest_batch
+    out.update({
+        "launches": launch_counts(K), "plain_calls": dict(plain),
+        "events": ledger_events(rm, n0), "claims": claims,
+        "jids": jids, "extra": extra, "beats": beats, "batches": batches,
+        "files": files, "jobs_processed": worker.jobs_processed,
+        "statuses": {j: queue.get_status(j) for j in [*jids, extra]},
+        "results": {j: queue.get_result(j) for j in [*jids, extra]},
+        "rows": rows_by_source(rag, "queue"),
+        "resources": rag.status()["resources"],
+        "live_after": store.live_workers()})
+    if device == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    # the reaper: a job claimed by a worker that never beat goes back
+    stale = queue.enqueue(IngestJob("tenant-stale", files[2],
+                                    collection="queue"))
+    store.claim_next("worker-without-heartbeats")
+    out["requeued"] = store.requeue_stale(cfg.worker.heartbeat_ttl_s)
+    out["stale"] = stale
+    out["stale_status"] = queue.get_status(stale)["status"]
+    queue.cancel(stale)
+    store.close()
+    rag.clear_collection("queue")
+    out["statuses"] = {j: {k: st[k] for k in ("status", "stage", "queue")}
+                       for j, st in out["statuses"].items()}
+    out["done"] = JobStatus.COMPLETED.value
+    return out
+
+
+def phase_queue(torch, K, prof: dict, workdir: Path,
+                device: str = "cuda") -> dict:
+    """(14) The job queue on profiles' pipeline and files
+    (:func:`run_queue`): the three jobs complete, claimed high first, as
+    one stage-grouped batch; the cancelled one never runs; the stored
+    chunks are profiles' batch's; the heartbeat row carries the card's
+    memory; each eviction frees at least 90 % of the evicted model's
+    recorded bytes; rows 1-3 launch and no plain version runs; the reaper
+    requeues a job claimed by a worker without heartbeats. Returns
+    launches by path. ``device="cpu"`` rehearses it (on the output of
+    :func:`run_profiles` on the CPU; no kernel check there)."""
+    t0 = time.perf_counter()
+    out = run_queue(torch, K, device, prof["rag"], prof["files"], workdir)
+    card = card_line() if device == "cuda" else "cpu"
+    batch = prof["batch"]
+    jids, files = out["jids"], out["files"]
+    print(f"queue drain_s {out['drain_s']:.3f} beside profiles' batch "
+          f"{batch['wall_s']:.3f} s "
+          f"({out['drain_s'] / batch['wall_s']:.3f}x); batch_claim "
+          f"{out['batch_claim']}, jobs {out['jobs_processed']}; peak "
+          f"allocated {out.get('peak_mem_gb', 0):.2f} GB, reserved "
+          f"{out.get('peak_reserved_gb', 0):.2f} GB ({card})", flush=True)
+    print_ledger("queue", out["events"], card)
+    print(f"queue launches {json.dumps(out['launches'])} ({card})",
+          flush=True)
+    print(f"queue resources {json.dumps(out['resources'])}", flush=True)
+    print(f"queue heartbeats {json.dumps(out['beats'])}", flush=True)
+    for j, f in zip(jids, files):
+        res = out["results"][j]
+        print(f"queue job {QUEUE_PRIORITIES[jids.index(j)]} "
+              f"{out['statuses'][j]} chunks "
+              f"{res.num_chunks if res else None} stage s "
+              f"{json.dumps(res.metrics if res else None)}", flush=True)
+    if out["duplicate"] != jids[0]:
+        fail(f"queue: the second enqueue under one idempotency key gave "
+             f"{out['duplicate']}, not DuplicateJobError for {jids[0]}")
+    if out["claims"] != [jids[2], jids[1], jids[0]]:
+        fail(f"queue: claims {out['claims']}, not high → normal → low "
+             f"{jids[::-1]}")
+    if out["batches"] != [[files[2], files[1], files[0]]]:
+        fail(f"queue: not one stage-grouped batch of the three: "
+             f"{out['batches']}")
+    for j in jids:
+        st, res = out["statuses"][j], out["results"][j]
+        if st["status"] != out["done"] or res is None \
+                or res.status.value != out["done"] or not res.num_chunks \
+                or "contextualize" not in res.metrics:
+            fail(f"queue: job {j} ended {st} with {res}")
+    if out["statuses"][out["extra"]]["status"] != "cancelled" or \
+            out["results"][out["extra"]] is not None:
+        fail(f"queue: the cancelled job ran or left the state "
+             f"{out['statuses'][out['extra']]}")
+    want = dict(zip(files, [[] for _ in files]))
+    for (text, speaker, start, end), res in zip(
+            batch["rows"], [r for r in batch["results"]
+                            for _ in range(r.num_chunks)]):
+        want[res.source].append((text, speaker, start, end))
+    if out["rows"] != want:
+        fail(f"queue: the stored chunks differ from profiles' batch: "
+             f"{out['rows']} against {want}")
+    if not out["beats"] or not all(
+            b.get("platform") == device and (
+                device == "cpu" or (b.get("bytes_in_use") or 0) > 0)
+            for b in out["beats"]):
+        fail(f"queue: a heartbeat row lacks the card's memory: "
+             f"{out['beats']}")
+    if out["live_after"]:
+        fail(f"queue: workers left registered: {out['live_after']}")
+    check_evictions("queue", out["events"])
+    n = out["launches"]
+    if device == "cuda":  # on the CPU the wrappers run the plain versions
+        if not (n[FLASH] and n[FLASH] == n[WGMMA] and n[Q8W]
+                and n[CROSS8]):
+            fail(f"queue: rows 1-3 did not all launch, or a flash call "
+                 f"missed wgmma: {n}")
+        idle = {k: n[k] for k in (CROSS4, Q4W, SELF8, REORDER) if n[k]}
+        if idle:
+            fail(f"queue: kernels off this path launched: {idle}")
+        if any(out["plain_calls"].values()):
+            fail(f"queue: plain versions were called: {out['plain_calls']}")
+    if out["requeued"] != [out["stale"]] or out["stale_status"] != "queued":
+        fail(f"queue: requeue_stale gave {out['requeued']} "
+             f"({out['stale_status']}), not [{out['stale']}]")
+    print(f"queue_s {time.perf_counter() - t0:.1f}", flush=True)
+    return {"queue": n}
 
 
 # -- eval: the quality numbers ---------------------------------------------------------
@@ -4371,7 +4674,25 @@ def profile_decode(torch, asr, logits, state, steps: int = 8) -> dict:
     return trace_steps(torch, step, steps)
 
 
-def free_card(torch) -> None:
+def free_card(torch, phase: str | None = None) -> None:
+    """Give the card's memory back. At a phase's end (``phase`` named),
+    first print the phase's evictions and release the device-memory
+    ledger: the manager unloads every backend it booked (its entries
+    would keep a finished phase's models alive, and the next phase would
+    "evict" them) and a fresh manager and engine replace the old ones."""
+    if phase is not None:
+        from audio_rag_tpu_torch.engine.engine import set_engine
+        from audio_rag_tpu_torch.resources.manager import (
+            get_resource_manager, set_resource_manager)
+
+        rm = get_resource_manager()
+        evicted = [e["name"] for e in rm.events if e["kind"] == "evict"]
+        print(f"{phase} ledger: {rm.eviction_count} evictions {evicted}, "
+              f"booked at the end {sorted(rm.status()['models'])}",
+              flush=True)
+        rm.unload_all()
+        set_resource_manager(None)
+        set_engine(None)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4655,11 +4976,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
-                            "answer,stream,profiles,eval,full,full_kv4,"
-                            "capacity,beam",
+                            "answer,stream,profiles,queue,eval,full,"
+                            "full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
                          "diarize,fallback,query,answer,stream,profiles,"
-                         "eval,full,full_kv4,capacity,beam")
+                         "queue,eval,full,full_kv4,capacity,beam (queue "
+                         "needs profiles)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -4707,41 +5029,51 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         if "spine" in phases:
             by_path.update(phase_spine(torch, K, Path(tmp)))
+            free_card(torch, "spine")
         if "diarize" in phases:
             by_path.update(phase_diarize(torch, K, Path(tmp)))
-            free_card(torch)
+            free_card(torch, "diarize")
     if "fallback" in phases:
         by_path.update(phase_fallback(torch, K))
-        free_card(torch)
+        free_card(torch, "fallback")
     if "query" in phases:
         by_path.update(phase_query(torch, K))
-        free_card(torch)
+        free_card(torch, "query")
     if "answer" in phases:
         by_path.update(phase_answer(torch, K))
-        free_card(torch)
+        free_card(torch, "answer")
     if "stream" in phases:
         by_path.update(phase_stream(torch, K))
-        free_card(torch)
+        free_card(torch, "stream")
+    if "queue" in phases and "profiles" not in phases:
+        fail("the queue phase drains profiles' files into profiles' "
+             "pipeline: run it with profiles")
     if "profiles" in phases:
         with tempfile.TemporaryDirectory() as tmp:
-            by_path.update(phase_profiles(torch, K, Path(tmp)))
-        free_card(torch)
+            prof = phase_profiles(torch, K, Path(tmp))
+            by_path.update(prof["launches"])
+            if "queue" in phases:
+                by_path.update(phase_queue(torch, K, prof, Path(tmp)))
+            prof["rag"].unload_all()
+            del prof
+        free_card(torch, "profiles+queue" if "queue" in phases
+                  else "profiles")
     if "eval" in phases:
         by_path.update(phase_eval(torch, K))
-        free_card(torch)
+        free_card(torch, "eval")
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)
-        free_card(torch)  # two large-v3 copies need not coexist
+        free_card(torch, "full")  # two large-v3 copies need not coexist
     if "full_kv4" in phases:
         by_path["full_kv4"] = phase_full(torch, K, "full_kv4",
                                          "kv4+int8+lm4", 32, 32)
-        free_card(torch)
+        free_card(torch, "full_kv4")
     if "capacity" in phases:
         by_path["capacity"] = phase_capacity(torch, K)
-        free_card(torch)
+        free_card(torch, "capacity")
     if "beam" in phases:
         by_path["beam"] = phase_beam(torch, K)
-        free_card(torch)
+        free_card(torch, "beam")
     print(f"total_s {time.perf_counter() - t_all:.1f}")
 
     rows = []

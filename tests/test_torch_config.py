@@ -88,8 +88,15 @@ def test_shipped_profiles_read_as_safe_load(name):
 
 
 def test_queue_profile_is_refused_with_its_line():
-    with pytest.raises(ConfigError, match=r"queue\.yaml:\d+"):
-        read_yaml(CONFIGS / "queue.yaml")
+    """The queue profile's sequence of flow mappings reads as
+    ``safe_load`` reads it; the forms around it that the reader refuses
+    still raise with their line."""
+    path = CONFIGS / "queue.yaml"
+    assert read_yaml(path) == yaml.safe_load(path.read_text())
+    for doc in ("q:\n  - {a: 1}\n  - 2\n", "q:\n  - {a: [1]}\n",
+                "q:\n  - {a: 1\n"):
+        with pytest.raises(ConfigError, match=r"<string>:\d+"):
+            parse_yaml(doc)
 
 
 SCALARS = [

@@ -37,6 +37,7 @@ from audio_rag_tpu_torch.diarization.clustering import (
     window_embeddings,
 )
 from audio_rag_tpu_torch.models.speaker import resolve_speaker_params
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     not (ASSETS_DIR / "speaker_small.npz").exists()

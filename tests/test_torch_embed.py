@@ -15,6 +15,7 @@ from audio_rag_tpu_torch.config import EmbeddingConfig
 from audio_rag_tpu_torch.embeddings.bge import BGEM3Embedder
 from audio_rag_tpu_torch.models import bert as tbert
 from audio_rag_tpu_torch.weights import bgem3_params
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 TEXTS = [
     "gradient descent minimizes the loss function",

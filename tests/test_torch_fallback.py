@@ -28,6 +28,7 @@ from audio_rag_tpu_torch.weights import (
     whisper_q8_params,
     whisper_spec,
 )
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 DIMS = jw.WHISPER_PRESETS["test"]
 TDIMS = tw.WHISPER_PRESETS["test"]

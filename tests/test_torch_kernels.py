@@ -14,6 +14,7 @@ import torch
 
 from audio_rag_tpu.ops import pallas_kernels as pk
 from audio_rag_tpu_torch.ops import kernels as K
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

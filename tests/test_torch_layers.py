@@ -11,6 +11,7 @@ import torch
 from audio_rag_tpu.models import layers as jl
 from audio_rag_tpu.ops import pallas_kernels as pk
 from audio_rag_tpu_torch.models import layers as tl
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5  # f32 sums in another order
 

@@ -22,6 +22,7 @@ from audio_rag_tpu_torch import native
 from audio_rag_tpu_torch.asr import word_timing as twt
 from audio_rag_tpu_torch.audio import io as tio
 from audio_rag_tpu_torch.core.exceptions import AudioProcessingError
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 RATES = [8000, 22050, 44100, 48000]

@@ -27,6 +27,7 @@ from audio_rag_tpu_torch.ops import mel as tmel
 from audio_rag_tpu_torch.ops import similarity as tsim
 from audio_rag_tpu_torch.retrieval.store import VectorStore
 from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer, pad_batch
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 
 # -- log-mel ---------------------------------------------------------------------

@@ -42,6 +42,8 @@ from audio_rag_tpu_torch.pipeline import AudioRAG
 from audio_rag_tpu_torch.utils import decorators as tdecorators
 from audio_rag_tpu_torch.utils import tracing as ttracing
 from audio_rag_tpu_torch.weights import e5_params
+from torch_ledger_common import fresh_ledger  # noqa: F401
+from torch_llm_common import one_torch_thread  # noqa: F401
 from torch_slice_common import QUERIES, _jax_rag, _port_rag, _turn_audio
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -205,8 +207,11 @@ def test_status_and_clear_collection_match_jax(rags, wav_file):
     assert set(got["traces"]) == set(want["traces"])
     assert {k: v["count"] for k, v in got["traces"].items()} == {
         k: v["count"] for k, v in want["traces"].items()}
-    assert got["engine"]["device"] == "cpu"
+    assert got["engine"]["device"]["type"] == "cpu"
+    assert got["engine"]["models"] == want["engine"]["models"] == {}
     assert got["resources"]["budget_gb"] == 14.0
+    assert got["resources"] == {k: v for k, v in want["resources"].items()
+                                if k != "device"}
     for rag, store in ((port, port.store), (ref, ref._retriever)):
         assert rag.clear_collection()
         assert store.count() == 0
@@ -518,7 +523,7 @@ def test_config_backends_build_their_components():
     assert rag.query_engine is None  # only BGE-M3 has the batched engine
     assert type(rag.diarizer).__name__ == "FakeDiarizer"
     rag.unload_all()
-    assert rag.status()["engine"]["models"] == []
+    assert rag.status()["engine"]["models"] == {}
 
 
 def test_from_config_reads_a_profile_file(tmp_path, monkeypatch, wav_file):

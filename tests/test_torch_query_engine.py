@@ -41,6 +41,7 @@ from audio_rag_tpu_torch.models.bert import BERT_PRESETS
 from audio_rag_tpu_torch.reranking import BGEReranker, FakeReranker
 from audio_rag_tpu_torch.retrieval.store import VectorStore
 from audio_rag_tpu_torch.weights import bgem3_params, cross_encoder_params
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 GOLDENS = Path(__file__).resolve().parent / "goldens"
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from audio_rag_tpu_torch.ops import random as R
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 TINY = np.finfo(np.float32).tiny
 

@@ -31,6 +31,7 @@ from audio_rag_tpu_torch.reranking import (
 )
 from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer
 from audio_rag_tpu_torch.weights import cross_encoder_params
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 QUERY = "gradient descent loss"
 PASSAGES = [

@@ -1,12 +1,11 @@
 """The PyTorch port's ingest → query slice as a whole: the same audio through
 the port's ``AudioRAG`` and the JAX package's gives identical segment texts,
 chunk texts and top-2 rankings, the same DTW word times and segment bounds
-within 0.02 s (two decode profiles here; the other five, diarization
-and the VAD filter in ``test_torch_slice_profiles.py``); with the default
-reranking (the trained eval-small cross-encoder) ``query``,
-``query_batch`` and ``get_context`` give the JAX package's rankings, scores
-and responses; what the slice does not port raises; the port's entry points
-refuse a missing card instead of running on the CPU; the port and
+within 0.02 s (three decode profiles here: fp32, int8, and int4 cross K/V
+with an int4 head; the other four and the query half with reranking in
+``test_torch_slice_profiles.py``), diarized the same speakers and chunk
+bounds, and the same segments through the VAD filter; the port's entry
+points refuse a missing card instead of running on the CPU; the port and
 ``chip_smoke.py`` import nothing of JAX or of the JAX package."""
 
 import ast
@@ -14,7 +13,6 @@ import subprocess
 import sys
 import textwrap
 
-import numpy as np
 import pytest
 import torch
 
@@ -22,26 +20,28 @@ from audio_rag_tpu.audio.charvoice import SR
 from audio_rag_tpu.audio.io import write_wav
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR
 from audio_rag_tpu_torch.config import (
+    ASRConfig,
     AudioRAGConfig,
-    ExpansionConfig,
-    RerankingConfig,
+    DiarizationConfig,
 )
 from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.pipeline import AudioRAG
+from torch_llm_common import one_torch_thread  # noqa: F401
 from torch_slice_common import (
     PROFILES,
-    QUERIES,
     ROOT,
-    _jax_rag,
-    _port_rag,
-    _turn_audio,
+    TIME_TOL,
+    _assert_same_times,
+    _gap_audio,
+    _run_jax,
+    _run_port,
     check_slice_profile,
 )
 
 
 @pytest.mark.skipif(not (ASSETS_DIR / "asr_tiny_synth.npz").exists(),
                     reason="trained ASR asset not built")
-@pytest.mark.parametrize("profile", ["fp32", "int8"])
+@pytest.mark.parametrize("profile", ["fp32", "int8", "kv4+int8+lm4"])
 def test_slice_matches_jax(profile, tmp_path, monkeypatch):
     """Both packages give the same segments, word times (DTW, within
     0.02 s), chunks and rankings in each decode profile
@@ -49,122 +49,52 @@ def test_slice_matches_jax(profile, tmp_path, monkeypatch):
     check_slice_profile(profile, tmp_path, monkeypatch)
 
 
-# -- the query half, reranking by default ----------------------------------------
+@pytest.mark.skipif(not (ASSETS_DIR / "asr_tiny_synth.npz").exists(),
+                    reason="trained ASR asset not built")
+def test_vad_filtered_transcribe_matches_jax(tmp_path, monkeypatch):
+    """With the VAD filter on (the default, learned backend under
+    "auto"), both packages transcribe the same speech spans: the same
+    segments, word times within 0.02 s, chunks and rankings."""
+    path = tmp_path / "lecture.wav"
+    write_wav(path, _gap_audio(), SR)
+    switches = {"vad_filter": True, "vad_backend": "auto"}
+    jax_segments, jax_chunks, jax_ranks = _run_jax(path, switches,
+                                                   monkeypatch)
+    segments, chunks, ranks = _run_port(path, switches, monkeypatch)
+    _assert_same_times(segments, jax_segments)
+    assert len(segments) >= 2 and segments[0][1] > 0.3  # spans, not 0 s
+    assert [c[0] for c in chunks] == [c[0] for c in jax_chunks]
+    assert ranks == jax_ranks
+    assert ASRConfig().vad_filter and ASRConfig().vad_backend == "auto"
 
-def _score_tol(score):
-    """8e-3 (the ranking goldens' bound), or two bf16 ulps of the score
-    where that is more (cross-encoder logits are bf16 values)."""
-    a = abs(score)
-    return max(8e-3, 2 * 2.0 ** (np.floor(np.log2(a)) - 7) if a else 0)
-
-
-def _key(r):
-    """A chunk's identity across the packages (chunk ids are random)."""
-    return r.text, round(r.start, 3)
-
-
-def _assert_same_results(got, ref):
-    """The same chunks in the same order but for near-ties, scores within
-    :func:`_score_tol`."""
-    ref_score = {_key(r): r.score for r in ref}
-    assert len(got) == len(ref) and set(ref_score) == {_key(r) for r in got}
-    ranked = [ref_score[_key(r)] for r in got]
-    for r in got:
-        assert abs(r.score - ref_score[_key(r)]) <= _score_tol(
-            ref_score[_key(r)]), (got, ref)
-    assert all(a >= b - _score_tol(a) for a, b in zip(ranked, ranked[1:]))
-
-
-@pytest.fixture(scope="module")
-def reranking_rags(tmp_path_factory):
-    """The trained spine ingested by both packages with the default
-    reranking on the trained eval-small cross-encoder."""
-    if not (ASSETS_DIR / "asr_tiny_synth.npz").exists():
-        pytest.skip("trained ASR asset not built")
-    path = tmp_path_factory.mktemp("query") / "turns.wav"
-    write_wav(path, _turn_audio(), SR)
-    jax_rag = _jax_rag(PROFILES["fp32"], reranking={
-        "backend": "bge-reranker", "model": "eval-small"})
-    port = _port_rag(PROFILES["fp32"],
-                     reranking=RerankingConfig(model="eval-small"))
-    assert port.config.reranking.backend == "bge-reranker"
-    for rag in (jax_rag, port):
-        rag.ingest(str(path), collection="slice", diarize=False)
-    yield jax_rag, port, str(path)
-    jax_rag.unload_all()
-
-
-@pytest.mark.parametrize("search_type", ["dense", "sparse", "hybrid"])
-def test_query_reranks_as_jax(reranking_rags, search_type):
-    """``query`` with the config's reranking (fused engine: the three
-    chunks are reranked although they are fewer than top_k); for hybrid
-    search also with a metadata filter (embed → filtered search → rerank,
-    which keeps the retrieval scores of three candidates) and with
-    ``rerank=False``."""
-    jax_rag, port, path = reranking_rags
-    extra = ([{"metadata_filter": {"source": path}}, {"rerank": False}]
-             if search_type == "hybrid" else [])
-    for kw in [{}, *extra]:
-        for q in QUERIES:
-            ref = jax_rag.query(q, search_type=search_type,
-                                collection="slice", **kw)
-            got = port.query(q, search_type=search_type, collection="slice",
-                             **kw)
-            _assert_same_results(got.results, ref.results)
-            if list(map(_key, got.results)) == list(map(_key, ref.results)):
-                assert got.response == ref.response
-            assert set(got.to_dict()) == set(ref.to_dict())
-            assert set(got.stage_timings) == set(ref.stage_timings)
-    top = port.query(QUERIES[0], collection="slice").results
-    assert len(top) == 3 and "gradient" in top[0].text
-    assert top[0].score != port.query(QUERIES[0], collection="slice",
-                                      rerank=False).results[0].score
-
-
-def test_query_batch_and_context_match_jax(reranking_rags):
-    jax_rag, port, _ = reranking_rags
-    ref = jax_rag.query_batch(QUERIES, collection="slice")
-    got = port.query_batch(QUERIES, collection="slice")
-    for g, r in zip(got, ref):
-        _assert_same_results(g.results, r.results)
-        assert g.query == r.query and g.elapsed_s > 0
-        if list(map(_key, g.results)) == list(map(_key, r.results)):
-            assert g.response == r.response
-    for q in QUERIES:
-        ctx = port.get_context(q, collection="slice")
-        assert ctx.startswith("<context>") and ctx.count("<excerpt") == 3
-        if list(map(_key, port.query(q, collection="slice").results)) == \
-                list(map(_key, jax_rag.query(q, collection="slice").results)):
-            assert ctx == jax_rag.get_context(q, collection="slice")
-
-
-def test_llm_options_are_refused(reranking_rags):
-    """Speech without an answer speaks nothing, as in the JAX package.
-    HyDE's sibling, pseudo-relevance feedback (on by default when the expansion
-    backend names it), is ported: a query expanded by it gives the JAX
-    package's expansion and results (both mine the default collection,
-    empty here, so the query stands); an empty collection still
-    answers."""
-    from audio_rag_tpu.config.schema import ExpansionConfig as JaxExpansion
-
-    jax_rag, port, _ = reranking_rags
-    # speech without an answer: neither pipeline speaks
-    for rag in (port, jax_rag):
-        assert rag.query(QUERIES[0], collection="slice",
-                         speak_answer=True).audio is None
-    saved = port.config.expansion, jax_rag.config.expansion
-    port.config.expansion = ExpansionConfig(backend="prf")
-    jax_rag.config.expansion = JaxExpansion(backend="prf")
-    try:
-        got = port.query(QUERIES[0], collection="slice")
-        ref = jax_rag.query(QUERIES[0], collection="slice")
-    finally:
-        port.config.expansion, jax_rag.config.expansion = saved
-        port.querying._expander = jax_rag.querying._expander = None
-    assert got.expanded_query == ref.expanded_query == QUERIES[0]
-    _assert_same_results(got.results, ref.results)
-    assert port.query("nothing here", collection="empty").response == \
-        "No relevant content found."
+@pytest.mark.skipif(not (ASSETS_DIR / "asr_tiny_synth.npz").exists(),
+                    reason="trained ASR asset not built")
+def test_diarized_slice_matches_jax(tmp_path, monkeypatch):
+    """The twin of the JAX package's trained end-to-end test on its own
+    0.5 s-gap layout and configuration (f32, no VAD filter), diarizing by
+    default (clustering, learned VAD, at most 2 speakers): the same chunk
+    texts, speakers, start and end, the same top-2 rankings, and the
+    spoken words in each query's top hit. (``chip_smoke.py`` runs the int8
+    profile of it on the card against this CPU path.)"""
+    path = tmp_path / "lecture.wav"
+    write_wav(path, _gap_audio(), SR)
+    switches = PROFILES["fp32"]
+    jax_out = _run_jax(path, switches, monkeypatch, diarize=True,
+                       diarization={"backend": "clustering",
+                                    "max_speakers": 2}, max_tokens=256)
+    port_out = _run_port(path, switches, monkeypatch, diarize=True,
+                         diarization=DiarizationConfig(max_speakers=2),
+                         max_tokens=256)
+    _assert_same_times(port_out[0], jax_out[0])
+    (segments, chunks, ranks), (_, jax_chunks, jax_ranks) = port_out, jax_out
+    assert [c[:2] for c in chunks] == [c[:2] for c in jax_chunks]
+    for got, ref in zip(chunks, jax_chunks):
+        assert abs(got[2] - ref[2]) <= TIME_TOL
+        assert abs(got[3] - ref[3]) <= TIME_TOL
+    assert ranks == jax_ranks
+    assert chunks and all(c[1] for c in chunks)
+    assert "gradient" in ranks[0][0] or "descent" in ranks[0][0]
+    assert "spectrogram" in ranks[1][0] or "harmonic" in ranks[1][0]
 
 
 # -- entry points ---------------------------------------------------------------

@@ -26,6 +26,7 @@ from audio_rag_tpu_torch.weights import (
     speaker_spec,
     vad_params,
 )
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 SR = 16_000
 ONE_ROUNDING = 2.0 ** -8  # one bf16 rounding, relative

@@ -20,6 +20,7 @@ from audio_rag_tpu_torch.core import types as ttypes
 from audio_rag_tpu_torch.core.exceptions import RetrievalError
 from audio_rag_tpu_torch.ops import similarity as tsim
 from audio_rag_tpu_torch.retrieval.store import VectorStore
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 DIM = 16
 

@@ -21,6 +21,7 @@ from audio_rag_tpu_torch.weights import (
     whisper_q8_params,
     whisper_self_cache_q8,
 )
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 DIMS = tw.WHISPER_PRESETS["test"]
 BDIMS = tbert.BERT_PRESETS["test"]

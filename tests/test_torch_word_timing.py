@@ -19,6 +19,7 @@ from audio_rag_tpu_torch.asr import word_timing as twt
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
 from audio_rag_tpu_torch.models import whisper as tw
 from audio_rag_tpu_torch.weights import whisper_params
+from torch_llm_common import one_torch_thread  # noqa: F401
 
 DIMS = jw.WHISPER_PRESETS["tiny-synth"]
 TDIMS = tw.WHISPER_PRESETS["tiny-synth"]

@@ -1,6 +1,6 @@
-"""Shared pieces of the LLM tests (``tests/test_torch_llm.py``,
-``tests/test_torch_generation.py``): torch on one thread for the module,
-and the RAG prompts the trained generator answers."""
+"""Shared pieces of the port's tests: torch on one thread for a module
+that imports ``one_torch_thread`` (every test file that computes with
+torch on the CPU), and the RAG prompts the trained generator answers."""
 
 import numpy as np
 import pytest
@@ -9,10 +9,13 @@ import torch
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
-    """The port's eager decode loop issues thousands of small ops; beside
-    the suite's other workers torch's thread pool fights them for the
-    cores (a generation test took 3× as long with 6 cores busy), so a
-    module that imports this fixture runs torch on one thread."""
+    """The port's eager code issues thousands of small ops; beside the
+    suite's other workers torch's thread pool fights them for the cores
+    (a generation test took 3× as long with 6 cores busy; on an 8-core
+    host the beam, Whisper, speculative and slice files took 561 s of
+    wall and 4,282 CPU-seconds on 6 workers with the pool, 121 s and 724
+    without), so a module that imports this fixture runs torch on one
+    thread."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
