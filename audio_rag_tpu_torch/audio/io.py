@@ -33,18 +33,22 @@ TARGET_SR = 16_000
 
 # -- WAV ---------------------------------------------------------------------
 
-def _wav_chunks(data: bytes) -> tuple[tuple[int, int, int, int], bytes]:
-    """((format, channels, rate, bits), sample bytes) of a RIFF/WAVE
-    buffer, walked as the native decoder walks it: word-aligned chunks, a
-    chunk running past the end cut to what is there. Raises on a bad
-    header."""
+def _wav_chunks(data: bytes
+                ) -> tuple[tuple[int, int, int, int], bytes, int]:
+    """((format, channels, rate, bits), sample bytes, the data chunk's
+    declared size) of a RIFF/WAVE buffer, walked as the native decoder
+    walks it: word-aligned chunks, a chunk running past the end cut to
+    what is there. Raises on a bad header."""
     if (len(data) < 44 or data[:4] != b"RIFF" or data[8:12] != b"WAVE"):
         raise ValueError("no RIFF/WAVE header")
     fmt = None
     pcm = None
+    declared = 0
     pos = 12
     while pos + 8 <= len(data):
         size = int.from_bytes(data[pos + 4: pos + 8], "little")
+        if data[pos: pos + 4] == b"data":
+            declared = size
         size = min(size, len(data) - pos - 8)
         body = data[pos + 8: pos + 8 + size]
         if data[pos: pos + 4] == b"fmt " and size >= 16:
@@ -57,14 +61,14 @@ def _wav_chunks(data: bytes) -> tuple[tuple[int, int, int, int], bytes]:
         pos += 8 + size + (size & 1)
     if pcm is None or fmt is None or fmt[1] == 0 or fmt[2] == 0:
         raise ValueError("no fmt or data chunk")
-    return fmt, pcm
+    return fmt, pcm, declared
 
 
 def _wav_decode_np(data: bytes) -> tuple[np.ndarray, int]:
     """numpy copy of the native ``arag_wav_decode``, with its arithmetic:
     each sample to f32 as the C code converts it, channels summed in f32
     in order and multiplied by the f32 reciprocal of their count."""
-    (code, channels, rate, bits), pcm = _wav_chunks(data)
+    (code, channels, rate, bits), pcm, _ = _wav_chunks(data)
     if code not in (1, 3) or (code == 3 and bits != 32) or bits not in (
             8, 16, 24, 32):
         raise NotImplementedError(f"WAV format {code} with {bits}-bit "
@@ -231,15 +235,18 @@ def decode_audio(
 
 
 def get_duration(path: str | Path) -> float:
-    """Duration in seconds: from the header for WAV, else by decoding."""
+    """Duration in seconds: for WAV the frames the header's data chunk
+    declares (as ``wave.getnframes``; the upload validator holds a file
+    to it even when fewer bytes follow), else by decoding."""
     p = Path(path)
     if p.suffix.lower() == ".wav":
         try:
-            (_, channels, rate, bits), pcm = _wav_chunks(p.read_bytes())
+            (_, channels, rate, bits), _, declared = _wav_chunks(
+                p.read_bytes())
         except (ValueError, OSError) as exc:
             raise AudioProcessingError(
                 f"invalid WAV file: {p}", context={"path": str(p)}) from exc
-        return len(pcm) // max(channels * (bits // 8), 1) / float(rate)
+        return declared // max(channels * (bits // 8), 1) / float(rate)
     audio, sr = decode_audio(p)
     return len(audio) / sr
 

@@ -28,10 +28,10 @@ Values that name a feature the port has not got are held here and raise
 ``ConfigError`` where they are used: ``retrieval.backend`` "fake"
 (registered nowhere in the JAX package either) and any ``checkpoint_path`` (no converted checkpoint is read).
 ``resources.max_hbm_gb`` and ``resources.pin_query_models`` set the
-device-memory manager's budget and pins (``AudioRAG``); the other
-``resources`` fields are held and read by nothing yet (the idle reaper of
-``unload_after_idle_seconds`` lives in the JAX package's API, not yet
-ported); ``embedding.normalize``
+device-memory manager's budget and pins (``AudioRAG``), and the API's
+idle reaper evicts what stayed idle ``unload_after_idle_seconds``
+(``api/app.py``); ``max_ram_gb`` and ``max_audio_duration_minutes`` are
+held and read by nothing, as in the JAX package; ``embedding.normalize``
 is held and changes nothing (the JAX embedders normalize either way);
 ``alignment.method`` is held (the JAX aligner reads it nowhere either);
 ``log_level`` sets the level of the port's loggers.
@@ -505,8 +505,8 @@ class TTSConfig:
 
 @dataclass
 class ResourceConfig:
-    """The device-memory budget of the JAX package's resource manager:
-    held, and read by nothing until that manager is ported."""
+    """The device-memory manager's budget and pins (``AudioRAG``) and the
+    API's idle eviction (``api/app.py``)."""
 
     max_hbm_gb: float = _f(14.0, ge=1.0)
     max_ram_gb: float = _f(16.0, ge=1.0)

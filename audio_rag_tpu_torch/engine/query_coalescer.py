@@ -5,7 +5,14 @@ Built on :class:`~audio_rag_tpu_torch.utils.coalescer.KeyedCoalescer`:
 queries that arrive while a batch runs accumulate and go out together in
 the next :meth:`AudioRAG.query_batch <audio_rag_tpu_torch.pipeline.AudioRAG.
 query_batch>`. Queries batch only when ``(top_k, search_type, collection,
-rerank)`` agree. Each batch runs inline on the coalescer's worker thread.
+rerank)`` agree.
+
+The coalescer's own thread never touches the device: each batch runs
+through ``run_in(fn) -> result`` (the API passes its single device-work
+executor; by default the batch runs inline on the coalescer's worker
+thread). ``linger_s``: keep draining this long after each arrival, so that
+clients woken together by one batch's end, resubmitting one at a time,
+ride the next batch together instead of the first of them going alone.
 """
 
 from __future__ import annotations
@@ -21,10 +28,13 @@ class QueryCoalescer(KeyedCoalescer):
     worker_name = "query-coalescer"
     join_timeout_s = 10.0
 
-    def __init__(self, pipeline, max_batch: int = 64):
-        """``pipeline`` provides ``query_batch`` (an ``AudioRAG``)."""
+    def __init__(self, pipeline, max_batch: int = 64, run_in=None,
+                 linger_s: float = 0.0):
+        """``pipeline`` provides ``query_batch`` (an ``AudioRAG`` or its
+        ``QueryPipeline``)."""
         self.pipeline = pipeline
-        super().__init__(max_batch=max_batch)
+        self._run_in = run_in or (lambda fn: fn())
+        super().__init__(max_batch=max_batch, linger_s=linger_s)
 
     @property
     def requests_served(self) -> int:
@@ -39,6 +49,6 @@ class QueryCoalescer(KeyedCoalescer):
 
     def _run_batch(self, payloads: list, key: tuple):
         top_k, search_type, collection, rerank = key
-        return self.pipeline.query_batch(
+        return self._run_in(lambda: self.pipeline.query_batch(
             payloads, top_k=top_k, search_type=search_type,
-            collection=collection, rerank=rerank)
+            collection=collection, rerank=rerank))

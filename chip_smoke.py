@@ -149,7 +149,7 @@ subset):
               overlap, 40 tokens, learned VAD, languages detected per
               session, word times, the ladder on): one row's first-step
               logits at B = 8 within 5 % of the row alone, a lone chunk's
-              dispatch ms, 8 sessions of 12 s fed unpaced from 8 threads
+              dispatch ms, 8 sessions of 6 s fed unpaced from 8 threads
               through one mux of 8 with the ladder and without (dispatch
               ms at B = 8 and 1, chunks served and batches run,
               submit-to-result p50/p95, the detect dispatches, launches a
@@ -201,7 +201,30 @@ subset):
               worker without heartbeats. Prints the drain's wall beside
               profiles' batch, evictions and swap seconds, peak memory,
               ``status()["resources"]`` and the launches;
-15. eval    — evaluation and speech output, on the card against the
+15. api     — the HTTP/WebSocket API on profiles' pipeline:
+              ``create_app`` with the inline worker on 127.0.0.1 at a port
+              the OS picks, driven by the tests' standard-library clients
+              (``tests/torch_api_client.py``): (a) ``/health/ready`` 200, a
+              query without a key 401, an empty one 422; (b) profiles'
+              first file uploaded by multipart (priority high), drained by
+              the inline worker to "completed" within 180 s, its chunks
+              profiles' batch's for that file; (c) eight concurrent
+              search-only queries: the rankings of the in-process
+              ``query_batch`` (but for near-ties), coalesced into fewer
+              batches, HTTP p50 ms beside a single query's in process;
+              (d) an answer over HTTP equal to ``rag.query(...,
+              generate_answer=True)``'s; (e) a WebSocket session of 12 s of
+              that file's PCM in 1 s frames: its transcripts (text, start,
+              end) equal to an in-process ``StreamingASR`` over a
+              ``StreamingMux`` on a Whisper backend built from the same
+              config, dispatch and submit-to-transcript ms; (f)
+              ``/metrics`` parses, counts every route used, shows the
+              14 GB budget and the engine gauge, and ``/api/v1/status``
+              names the card; (g) rows 1-3 launch (flash on wgmma), no
+              other kernel and no plain version; peak memory. The server,
+              its executor, the mux, the inline worker and the coalescer
+              stop before the references run;
+16. eval    — evaluation and speech output, on the card against the
               port's CPU path in three worker processes of the script's
               own: (a) the WER harness's held-out sets on the trained tiny
               ASR (64 charvoice utterances from ``default_rng(777)`` in
@@ -233,7 +256,8 @@ the script fails without it, so the word-time DTW of every ingest runs in
 C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
 ``query`` after ``fallback``, ``answer`` after ``query``, ``stream``
 after ``answer``, ``profiles`` after ``stream``, ``queue`` after
-``profiles`` (it needs profiles' pipeline), ``eval`` after ``queue``.
+``profiles`` (it needs profiles' pipeline), ``api`` after ``queue`` (on
+profiles' pipeline too), ``eval`` after ``api``.
 At each phase's end the device-memory manager unloads what it booked and
 a fresh manager and engine replace it (:func:`free_card`). The
 ``answer`` phase's
@@ -2925,8 +2949,11 @@ STREAM_TINY = {"chunk_duration": 4.0, "overlap_duration": 0.5,
                "max_decode_tokens": 112}
 STREAM_E2E = "the model learns fast and stops"
 STREAM_PHRASES = SPINE_TURNS + [STREAM_E2E]
-#: live sessions (the schema's max_sessions) and seconds of speech each
-STREAM_SESSIONS, STREAM_SECONDS = 8, 15.0
+#: live sessions (the schema's max_sessions) and seconds of speech each:
+#: 6 s is three chunks a session at 3 s chunks and 0.6 s overlap, three
+#: full dispatches of 8 (15 s, six of them, took 70 s with the ladder on
+#: a slow host and pushed the script past 1,000 s)
+STREAM_SESSIONS, STREAM_SECONDS = 8, 6.0
 STREAM_QUERIES = 32
 
 
@@ -3986,6 +4013,363 @@ def phase_queue(torch, K, prof: dict, workdir: Path,
     return {"queue": n}
 
 
+# -- api: the HTTP/WebSocket server on profiles' pipeline ---------------------------------
+
+API_KEY = {"x-api-key": "dev-key-basic"}
+API_QUERIES = PROFILE_QUERIES + ["model data window", "signal noise speech",
+                                 "weight update step", "meeting lecture rank",
+                                 "vector fusion chunk"]
+API_STREAM_S = 12  # seconds of the uploaded file streamed over the WebSocket
+API_ROUTES = ("/health/ready", "/api/v1/query", "/api/v1/ingest",
+              "/api/v1/jobs/{job_id}", "/api/v1/status",
+              "/api/v1/streaming/status")
+
+
+def api_clients():
+    """The standard-library clients the tests use (``tests/
+    torch_api_client.py``)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_api_client
+
+    return torch_api_client
+
+
+def stream_over_ws(C, port: int, frames: list[bytes]) -> dict:
+    """One WebSocket session: ``frames`` sent back to back, then "stop";
+    every message with the seconds it arrived, and each frame's send time."""
+    sent, msgs = [], []
+    with C.WSClient(port, "/api/v1/ws/transcribe", headers=API_KEY) as ws:
+        first = ws.recv_json()
+        for f in frames:
+            ws.send_bytes(f)
+            sent.append(time.perf_counter())
+        ws.send_json({"command": "stop"})
+        sent.append(time.perf_counter())
+        while not msgs or msgs[-1][1].get("status") != "stopped":
+            msg = ws.recv_json()
+            msgs.append((time.perf_counter(), msg))
+    return {"first": first, "sent": sent, "msgs": msgs}
+
+
+def reference_stream(rag, frames: list[bytes], device: str) -> list:
+    """The route's session in process: a ``StreamingASR`` over a
+    ``StreamingMux`` on a Whisper backend built from the pipeline's
+    config as the route builds it; (text, start, end) a transcript. The
+    mux is marked warm once its backend is loaded (the reference's times
+    are not reported)."""
+    import asyncio
+    import dataclasses
+
+    from audio_rag_tpu_torch.asr.mux import StreamingMux
+    from audio_rag_tpu_torch.asr.streaming import StreamingASR
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+
+    cfg = rag.config
+    asr_cfg = cfg.asr
+    if asr_cfg.max_decode_tokens is None:
+        asr_cfg = dataclasses.replace(
+            asr_cfg, max_decode_tokens=cfg.streaming.max_decode_tokens)
+    backend = WhisperASR(asr_cfg, device=device)
+    mux = StreamingMux(backend)
+    session = StreamingASR(cfg.asr, cfg.streaming.to_runtime(), mux=mux)
+
+    async def run():
+        out = []
+        await session.start()
+        for f in frames:
+            r = await session.add_audio(f)
+            if r is not None:
+                out.append(r)
+        r = await session.stop()
+        return out + ([r] if r is not None else [])
+
+    try:
+        mux.call(backend.load).result()
+        mux.warmed = True
+        session.load()
+        loop = asyncio.new_event_loop()
+        try:
+            results = loop.run_until_complete(run())
+        finally:
+            loop.close()
+    finally:
+        mux.stop()
+        session.unload()
+        backend.unload()
+    return [(r.text, r.start, r.end) for r in results]
+
+
+def run_api(torch, K, device: str, rag, files: list[str], workdir: Path,
+            card: str = "cpu") -> dict:
+    """The api phase's work on profiles' pipeline: ``create_app`` with the
+    inline worker on 127.0.0.1 at a port the OS picks, driven by
+    standard-library clients: (a) probes, (b) an upload drained by the
+    inline worker, (c) eight concurrent search-only queries, (d) an
+    answer, (e) a WebSocket session, (f) ``/metrics`` and ``/api/v1/
+    status``; the kernel launches of (a)-(f). Then the server, its
+    executor, the mux, the inline worker and the coalescer stop, and the
+    in-process references run: ``query_batch``, single queries, the
+    answer and the session. Returns what it measured."""
+    import threading
+
+    from audio_rag_tpu_torch.api import create_app
+    from audio_rag_tpu_torch.api.config import APIConfig
+    from audio_rag_tpu_torch.audio.io import decode_audio
+    from audio_rag_tpu_torch.resources.manager import get_resource_manager
+
+    C = api_clients()
+    out: dict = {}
+    rm = get_resource_manager()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with plain_calls(K, K.KERNELS) as plain:
+        t_phase = time.perf_counter()
+        app = create_app(APIConfig(upload_dir=str(workdir / "uploads"),
+                                   queue_db_path=str(workdir / "api.db"),
+                                   inline_worker=True), rag=rag)
+        served = C.Served(app)
+        port = served.port
+        try:
+            # (a)
+            out["ready"] = C.request_json(port, "GET", "/health/ready")[:3:2]
+            out["no_key"] = C.request_json(port, "POST", "/api/v1/query",
+                                           {"query": "x"})[0]
+            out["empty"] = C.request_json(port, "POST", "/api/v1/query",
+                                          {"query": ""}, API_KEY)[0]
+            # (b)
+            n0 = len(rm.events)
+            body, ctype = C.multipart(
+                {"priority": "high", "collection": "api"},
+                [("file", "talk0.wav", Path(files[0]).read_bytes(),
+                  "audio/wav")])
+            t0 = time.perf_counter()
+            status, _, up = C.request_json(
+                port, "POST", "/api/v1/ingest",
+                headers={**API_KEY, "content-type": ctype}, raw=body)
+            out["upload"] = (status, up)
+            st = None
+            while status == 202 and time.perf_counter() - t0 < 180:
+                st = C.request_json(port, "GET",
+                                    f"/api/v1/jobs/{up['job_id']}",
+                                    headers=API_KEY)[2]
+                if st["status"] in ("completed", "failed", "cancelled"):
+                    break
+                time.sleep(0.25)
+            out["upload_s"] = time.perf_counter() - t0
+            out["job"] = st
+            out["upload_events"] = ledger_events(rm, n0)
+            out["rows"] = stored_rows(rag, "api") \
+                if rag.store.collection_exists("api") else []
+            # (c)
+            gate = threading.Barrier(len(API_QUERIES))
+            http: dict = {}
+
+            def ask(q):
+                gate.wait(timeout=60)
+                t = time.perf_counter()
+                s, _, b = C.request_json(
+                    port, "POST", "/api/v1/query",
+                    {"query": q, "collection": "api"}, API_KEY)
+                http[q] = (s, b, (time.perf_counter() - t) * 1e3)
+
+            threads = [threading.Thread(target=ask, args=(q,))
+                       for q in API_QUERIES]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            out["http_queries"] = http
+            c = app.state.get("query_coalescer")
+            out["coalescer"] = (c.requests_served, c.batches_run) if c \
+                else (0, 0)
+            # (d)
+            t = time.perf_counter()
+            out["http_answer"] = C.request_json(
+                port, "POST", "/api/v1/query",
+                {"query": PROFILE_QUERIES[0], "collection": "api",
+                 "generate_answer": True}, API_KEY)[::2]
+            out["http_answer_ms"] = (time.perf_counter() - t) * 1e3
+            # (e)
+            audio, _ = decode_audio(files[0])
+            frames = C.pcm_frames(audio[:API_STREAM_S * 16000])
+            out["frames"] = frames
+            out["ws"] = stream_over_ws(C, port, frames)
+            out["ws_status"] = C.request_json(
+                port, "GET", "/api/v1/streaming/status", headers=API_KEY)[2]
+            # (f)
+            out["status"] = C.request_json(port, "GET", "/api/v1/status",
+                                           headers=API_KEY)[::2]
+            s, _, text = C.request(port, "GET", "/metrics")
+            out["metrics_status"] = s
+            out["metrics"] = C.parse_metrics(text.decode())
+            sync(torch, device)
+            out["api_s"] = time.perf_counter() - t_phase
+            out["launches"] = launch_counts(K)
+        finally:
+            served.stop()
+            app.state["executor"].shutdown(wait=True)
+            for t in threading.enumerate():
+                if t.name == "inline-worker":
+                    t.join(timeout=60)
+        out["plain_calls"] = dict(plain)
+    mux = app.state.get("streaming_mux")
+    out["threads_left"] = sorted(
+        t.name for t in threading.enumerate()
+        if t.name in ("inline-worker", "query-coalescer", "asr-mux")
+        and t.is_alive())
+    if mux is not None:
+        mux.backend.unload()  # the route's own Whisper, outside the ledger
+    del app, served, mux
+    gc.collect()
+    if device == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    # the in-process references
+    batch = rag.query_batch(API_QUERIES, collection="api")
+    out["ref_queries"] = {q: [(r.chunk_id, r.score) for r in res.results]
+                          for q, res in zip(API_QUERIES, batch)}
+    single = []
+    for q in API_QUERIES[:5]:
+        t = time.perf_counter()
+        rag.query(q, collection="api")
+        sync(torch, device)
+        single.append((time.perf_counter() - t) * 1e3)
+    out["single_ms"] = single
+    out["ref_answer"] = rag.query(PROFILE_QUERIES[0], collection="api",
+                                  generate_answer=True).answer
+    out["ref_stream"] = reference_stream(rag, out.pop("frames"), device)
+    rag.clear_collection("api")
+    out["card"] = card
+    return out
+
+
+def phase_api(torch, K, prof: dict, workdir: Path,
+              device: str = "cuda") -> dict:
+    """(15) The API on profiles' pipeline (:func:`run_api`): every check
+    (a)-(g) fails the run on a mismatch. Returns launches by path.
+    ``device="cpu"`` rehearses it (no kernel check there)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    card = card_line() if device == "cuda" else "cpu"
+    out = run_api(torch, K, device, prof["rag"], prof["files"], workdir,
+                  card)
+    # (a)
+    if out["ready"][0] != 200 or out["no_key"] != 401 or out["empty"] != 422:
+        fail(f"api: /health/ready {out['ready']}, a query without a key "
+             f"{out['no_key']}, an empty query {out['empty']}")
+    # (b)
+    status, up = out["upload"]
+    job = out["job"] or {}
+    batch = prof["batch"]
+    first = batch["results"][0]
+    want = [r[0] for r in batch["rows"][: first.num_chunks]]
+    print(f"api upload_to_completed_s {out['upload_s']:.3f} (status "
+          f"{status}, job {job.get('status')}, chunks "
+          f"{(job.get('result') or {}).get('num_chunks')}; profiles' batch "
+          f"stage s of that file {json.dumps(first.stage_timings)}, the "
+          f"job's {json.dumps((job.get('result') or {}).get('metrics'))}; "
+          f"{card})", flush=True)
+    print_ledger("api[upload]", out["upload_events"], card)
+    if status != 202 or job.get("status") != "completed":
+        fail(f"api: the upload answered {status} {up} and ended {job}")
+    if [r[0] for r in out["rows"]] != want:
+        fail(f"api: the uploaded file's chunks differ from profiles' "
+             f"batch: {out['rows']} against {want}")
+    check_evictions("api[upload]", out["upload_events"])
+    # (c)
+    http, ref = out["http_queries"], out["ref_queries"]
+    bad = {q: r for q, r in http.items() if r[0] != 200}
+    if bad or len(http) != len(API_QUERIES):
+        fail(f"api: queries failed: {bad or sorted(http)}")
+    exact = sum([r["chunk_id"] for r in http[q][1]["results"]]
+                == [i for i, _ in ref[q]] for q in API_QUERIES)
+    for q in API_QUERIES:
+        got = [(r["chunk_id"], r["score"]) for r in http[q][1]["results"]]
+        if not same_ranking(got, ref[q]):
+            fail(f"api: {q!r} over HTTP ranked {got}, in process {ref[q]}")
+    served, batches = out["coalescer"]
+    ms = sorted(r[2] for r in http.values())
+    print(f"api queries: {exact} of {len(API_QUERIES)} rankings equal to "
+          f"query_batch's, the rest within near-ties; coalescer "
+          f"{served} served in {batches} batches; HTTP p50 "
+          f"{ms[len(ms) // 2]:.1f} ms (max {ms[-1]:.1f}) against "
+          f"{float(np.median(out['single_ms'])):.1f} ms a single query in "
+          f"process ({card})", flush=True)
+    if served < len(API_QUERIES) or batches >= len(API_QUERIES):
+        fail(f"api: the coalescer served {served} in {batches} batches")
+    # (d)
+    status, body = out["http_answer"]
+    print(f"api answer {out['http_answer_ms']:.1f} ms over HTTP: "
+          f"{json.dumps((body or {}).get('answer'))[:120]}", flush=True)
+    if status != 200 or body.get("answer") != out["ref_answer"]:
+        fail(f"api: the HTTP answer ({status}) {body and body.get('answer')!r}"
+             f" is not the in-process {out['ref_answer']!r}")
+    # (e)
+    ws = out["ws"]
+    texts = [(t, m) for t, m in ws["msgs"] if m["type"] == "transcript"]
+    got = [(m["text"], m["start"], m["end"]) for _, m in texts]
+    lat = []
+    for t, m in texts:
+        # the frame whose arrival completed the chunk, or the stop
+        k = min(int(round(m["end"])), len(ws["sent"])) - 1
+        lat.append(round((t - ws["sent"][k if not m["is_final"]
+                                          else -1]) * 1e3, 1))
+    print(f"api ws: {len(got)} transcripts, dispatch ms "
+          f"{[round(m['processing_time_ms'], 1) for _, m in texts]}, "
+          f"submit-to-transcript ms {lat}, chunks_served "
+          f"{out['ws_status'].get('chunks_served')} in "
+          f"{out['ws_status'].get('batches_run')} batches ({card})",
+          flush=True)
+    print(f"api ws transcripts {json.dumps(got)}", flush=True)
+    if ws["first"] != {"type": "status", "status": "listening"} or not got:
+        fail(f"api: the WebSocket session gave {ws['first']}, {got}")
+    if got != out["ref_stream"]:
+        fail(f"api: the WebSocket transcripts {got} differ from the "
+             f"in-process session's {out['ref_stream']}")
+    # (f)
+    m = out["metrics"]
+    routes = {dict(lbl).get("route") for name, lbl in m
+              if name == "audio_rag_requests_total"}
+    status, st = out["status"]
+    engine = (st or {}).get("engine", {}).get("device", {})
+    print(f"api metrics: {len(m)} series, routes {sorted(routes)}, "
+          f"hbm budget {m.get(('audio_rag_hbm_budget_gb', ()))} GB, engine "
+          f"{m.get(('audio_rag_engine_hbm_gb', ()))} GB; status engine "
+          f"{json.dumps(engine)}", flush=True)
+    if out["metrics_status"] != 200 or set(API_ROUTES) - routes:
+        fail(f"api: /metrics {out['metrics_status']} lacks routes "
+             f"{set(API_ROUTES) - routes}")
+    if m.get(("audio_rag_hbm_budget_gb", ())) != 14.0 or \
+            ("audio_rag_engine_hbm_gb", ()) not in m:
+        fail("api: /metrics lacks the 14 GB budget or the engine gauge")
+    if device == "cuda" and (status != 200 or engine.get("name")
+                             != torch.cuda.get_device_name(0)):
+        fail(f"api: /api/v1/status names the engine's device {engine}")
+    # (g)
+    n = out["launches"]
+    print(f"api launches {json.dumps(n)}; plain calls "
+          f"{json.dumps(out['plain_calls'])}; peak allocated "
+          f"{out.get('peak_mem_gb', 0):.2f} GB, reserved "
+          f"{out.get('peak_reserved_gb', 0):.2f} GB ({card})", flush=True)
+    if out["threads_left"]:
+        fail(f"api: threads left running: {out['threads_left']}")
+    if device == "cuda":
+        if not (n[FLASH] and n[FLASH] == n[WGMMA] and n[Q8W]
+                and n[CROSS8]):
+            fail(f"api: rows 1-3 did not all launch, or a flash call "
+                 f"missed wgmma: {n}")
+        idle = {k: n[k] for k in (CROSS4, Q4W, SELF8, REORDER) if n[k]}
+        if idle:
+            fail(f"api: kernels off this path launched: {idle}")
+        if any(out["plain_calls"].values()):
+            fail(f"api: plain versions were called: {out['plain_calls']}")
+    print(f"api_s {time.perf_counter() - t0:.1f} (the server's part "
+          f"{out['api_s']:.1f})", flush=True)
+    return {"api": n}
+
+
 # -- eval: the quality numbers ---------------------------------------------------------
 
 EVAL_N = 64  # the WER harness's charvoice utterances (default_rng(777))
@@ -4976,12 +5360,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
-                            "answer,stream,profiles,queue,eval,full,"
+                            "answer,stream,profiles,queue,api,eval,full,"
                             "full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
                          "diarize,fallback,query,answer,stream,profiles,"
-                         "queue,eval,full,full_kv4,capacity,beam (queue "
-                         "needs profiles)")
+                         "queue,api,eval,full,full_kv4,capacity,beam (queue "
+                         "and api need profiles)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -5045,19 +5429,22 @@ def main() -> None:
     if "stream" in phases:
         by_path.update(phase_stream(torch, K))
         free_card(torch, "stream")
-    if "queue" in phases and "profiles" not in phases:
-        fail("the queue phase drains profiles' files into profiles' "
-             "pipeline: run it with profiles")
+    for phase in ("queue", "api"):
+        if phase in phases and "profiles" not in phases:
+            fail(f"the {phase} phase serves profiles' files through "
+                 "profiles' pipeline: run it with profiles")
     if "profiles" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             prof = phase_profiles(torch, K, Path(tmp))
             by_path.update(prof["launches"])
             if "queue" in phases:
                 by_path.update(phase_queue(torch, K, prof, Path(tmp)))
+            if "api" in phases:
+                by_path.update(phase_api(torch, K, prof, Path(tmp)))
             prof["rag"].unload_all()
             del prof
-        free_card(torch, "profiles+queue" if "queue" in phases
-                  else "profiles")
+        free_card(torch, "+".join(p for p in ("profiles", "queue", "api")
+                                  if p in phases))
     if "eval" in phases:
         by_path.update(phase_eval(torch, K))
         free_card(torch, "eval")

@@ -2,13 +2,18 @@
 (``engine/query_coalescer.py``): the behaviours the JAX package's
 ``tests/unit/utils/test_coalescer.py`` and
 ``tests/unit/engine/test_query_coalescer.py`` hold its own to, one
-parametrised case each, and the port's ``call`` hook."""
+parametrised case each, the port's ``call`` hook, and the query
+coalescer's ``run_in`` and ``linger_s`` against the JAX one's."""
 
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
+from audio_rag_tpu.engine.query_coalescer import (
+    QueryCoalescer as JaxQueryCoalescer,
+)
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR
 from audio_rag_tpu_torch.config import (
     AudioRAGConfig,
@@ -256,3 +261,44 @@ def _error_fails_its_batch(rag):
 ], ids=lambda f: f.__name__.strip("_"))
 def test_query_coalescer(rag, case):
     case(rag)
+
+
+class _RecordingPipeline:
+    """A ``query_batch`` provider that records the thread and the size of
+    each batch."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, int]] = []
+
+    def query_batch(self, queries, **kw):
+        self.calls.append((threading.current_thread().name, len(queries)))
+        return [f"hits of {q} at {kw['top_k']}" for q in queries]
+
+
+def _trickle(cls, linger_s: float, gap_s: float = 0.01):
+    """Six queries submitted ``gap_s`` apart to a ``cls`` coalescer whose
+    batches run on a one-thread "device" executor."""
+    pipe = _RecordingPipeline()
+    with ThreadPoolExecutor(1, thread_name_prefix="device") as device:
+        c = cls(pipe, run_in=lambda fn: device.submit(fn).result(),
+                linger_s=linger_s)
+        try:
+            futs = []
+            for q in QUERIES[:6]:
+                futs.append(c.submit(q, top_k=3))
+                time.sleep(gap_s)
+            got = [f.result(timeout=10) for f in futs]
+        finally:
+            c.stop()
+    return got, pipe.calls
+
+
+def test_query_coalescer_runs_in_the_executor_and_lingers_as_jax():
+    """The API passes its device executor (``run_in``) and a linger
+    (``linger_s``): every batch runs on the executor's thread, and a
+    trickle of arrivals 10 ms apart fills one batch under a 250 ms linger,
+    as the JAX coalescer does on the same arrivals."""
+    got, calls = _trickle(QueryCoalescer, linger_s=0.25)
+    want, jax_calls = _trickle(JaxQueryCoalescer, linger_s=0.25)
+    assert got == want == [f"hits of {q} at 3" for q in QUERIES[:6]]
+    assert calls == jax_calls == [("device_0", 6)]

@@ -207,6 +207,21 @@ def test_median_filter_matches_numpy_and_jax(lib, width):
                                   jwt._median_filter(x, width))
 
 
+@pytest.mark.parametrize("declared,present", [(0xFFFFFF00, 64), (8000, 16),
+                                               (7, 7)])
+def test_get_duration_reads_the_declared_frames_as_jax(tmp_path, declared,
+                                                       present):
+    """A WAV's duration is the frames its data chunk declares, as
+    ``wave.getnframes`` gives them to the JAX package, also when fewer
+    bytes follow (the upload validator refuses such a file as too long)."""
+    fmt = struct.pack("<HHIIHH", 1, 1, 8000, 8000, 1, 8)
+    path = tmp_path / "t.wav"
+    path.write_bytes(b"RIFF" + struct.pack("<I", 36 + declared) + b"WAVE"
+                     + b"fmt " + struct.pack("<I", 16) + fmt + b"data"
+                     + struct.pack("<I", declared) + b"\x80" * present)
+    assert tio.get_duration(path) == jio.get_duration(path) == declared / 8000
+
+
 def test_get_duration_and_the_error_without_ffmpeg(tmp_path, monkeypatch):
     path = tmp_path / "d.wav"
     jio.write_wav(path, _signal(22050, 22050 * 3 + 11, 3), 22050)

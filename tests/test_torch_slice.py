@@ -125,8 +125,20 @@ def test_entry_points_refuse_a_missing_card(no_cuda):
 
 # -- import isolation ---------------------------------------------------------------
 
+#: what the port, ``chip_smoke.py`` and the API clients it shares with the
+#: tests never import: JAX, the JAX package, and what the card's machine
+#: lacks (PyYAML: the port reads its profiles with its own reader; the web
+#: stack the JAX API's reference was built on: the port's server is the
+#: standard library's)
+FORBIDDEN = {"jax", "jaxlib", "audio_rag_tpu", "yaml", "pydantic", "httpx",
+             "websockets", "fastapi", "uvicorn", "starlette"}
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    code = textwrap.dedent("""
+    """Every module of the port imports (``python -m`` entry points
+    included: ``api/__main__.py`` starts nothing when imported) and
+    leaves nothing of :data:`FORBIDDEN` in ``sys.modules``."""
+    code = f"FORBIDDEN = {sorted(FORBIDDEN)!r}\n" + textwrap.dedent("""
         import importlib, pkgutil, sys
         import audio_rag_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -137,9 +149,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         from audio_rag_tpu_torch.pipeline import AudioRAG
         AudioRAG(AudioRAGConfig(device="cpu"))
         load_config(env="production", overrides={"device": "cpu"})
+        assert "audio_rag_tpu_torch.api.__main__" in names
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "audio_rag_tpu",
-                                            "yaml"))
+                     if m.split(".")[0] in FORBIDDEN)
         print(len(names), bad)
         sys.exit(1 if bad or len(names) < 20 else 0)
     """)
@@ -159,17 +171,16 @@ def _imported_roots(path):
 
 
 def test_sources_of_port_and_chip_smoke_import_no_jax():
-    """No import of JAX, the JAX package or PyYAML (the card's machine has
-    no PyYAML: the port reads its profiles with its own reader), and no
-    use of the JAX package's native library or its Makefile: the port
-    builds its own copy of the C++ source."""
+    """No import of :data:`FORBIDDEN`, and no use of the JAX package's
+    native library or its Makefile: the port builds its own copy of the
+    C++ source."""
     files = [ROOT / "chip_smoke.py",
              ROOT / "scripts" / "run_torch.py",
              ROOT / "scripts" / "eval_torch.py",
+             ROOT / "tests" / "torch_api_client.py",
              *sorted((ROOT / "audio_rag_tpu_torch").rglob("*.py"))]
     for path in files:
-        bad = _imported_roots(path) & {"jax", "jaxlib", "audio_rag_tpu",
-                                       "yaml"}
+        bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
     for path in [*files, *sorted(
             (ROOT / "audio_rag_tpu_torch" / "csrc").glob("*.cpp"))]:
