@@ -51,6 +51,7 @@ from __future__ import annotations
 import logging
 import time
 import zlib
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -63,7 +64,11 @@ from audio_rag_tpu_torch.asr.vad import (
 )
 from audio_rag_tpu_torch.asr.word_timing import attention_to_word_times
 from audio_rag_tpu_torch.audio.io import decode_audio
-from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
+from audio_rag_tpu_torch.checkpoint import (
+    ASSETS_DIR,
+    host_tree,
+    load_npz_asset,
+)
 from audio_rag_tpu_torch.config import ASRConfig
 from audio_rag_tpu_torch.core.exceptions import ConfigError, TranscriptionError
 from audio_rag_tpu_torch.core.types import TranscriptSegment, Word
@@ -119,8 +124,14 @@ class WhisperASR:
     """
 
     def __init__(self, config: ASRConfig | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 weights: dict | str | Path | None = None):
+        """``weights``: a Whisper tree (``init_whisper``'s layout, numpy
+        arrays or tensors) or the path of an ``.npz`` asset, in place of
+        what ``load`` reads by default (the committed asset for
+        tiny-synth, seeded weights otherwise): a freshly trained tree."""
         self.config = config or ASRConfig()
+        self._weights = weights
         size = self.config.model_size
         if size not in WHISPER_PRESETS:
             raise TranscriptionError(f"unknown whisper size {size!r}")
@@ -174,7 +185,14 @@ class WhisperASR:
         rm = get_resource_manager()
         rm.ensure_hbm(self.hbm_required_gb, for_model="asr")
         tree = None
-        if self.config.model_size == "tiny-synth":
+        if isinstance(self._weights, dict):
+            tree = host_tree(self._weights)
+        elif self._weights is not None:
+            tree = load_npz_asset(self._weights)
+            if tree is None:
+                raise TranscriptionError(
+                    f"Whisper weights {str(self._weights)!r} not found")
+        elif self.config.model_size == "tiny-synth":
             tree = load_npz_asset(ASSETS_DIR / "asr_tiny_synth.npz")
             if tree is None:
                 raise TranscriptionError("asr_tiny_synth.npz asset missing")

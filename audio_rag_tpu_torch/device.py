@@ -6,7 +6,8 @@ caller asks for it.
 
 The port sets no process-wide ``torch.backends`` switch. Where it relies on
 f32 precision it scopes that to the call: :func:`full_f32_matmul` for f32
-matmuls, :func:`full_f32_conv` for f32 convolutions.
+matmuls, :func:`full_f32_conv` for f32 convolutions, :func:`full_f32` for
+a whole region (a training step's forward and backward).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from audio_rag_tpu_torch.core.exceptions import ConfigError
 
-__all__ = ["full_f32_conv", "full_f32_matmul", "resolve_device"]
+__all__ = ["full_f32", "full_f32_conv", "full_f32_matmul", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -65,3 +66,20 @@ def full_f32_conv(x: torch.Tensor) -> contextlib.AbstractContextManager:
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+@contextlib.contextmanager
+def full_f32(device: str | torch.device) -> Iterator[None]:
+    """:func:`full_f32_matmul` and, on CUDA, cuDNN without TF32, over a
+    whole region. A training step needs it around its forward and its
+    backward: autograd runs a convolution's backward after the forward's
+    :func:`full_f32_conv` scope has closed, where PyTorch's default would
+    let the f32 gradient take TF32."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(full_f32_matmul())
+        if torch.device(device).type == "cuda":
+            cudnn = torch.backends.cudnn
+            stack.enter_context(cudnn.flags(
+                enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                deterministic=cudnn.deterministic, allow_tf32=False))
+        yield

@@ -20,6 +20,10 @@ the gain; :func:`rms_norm` reads its input as given, so a caller that
 holds the residual stream in f32 (as XLA does between a sum and the norm
 that reads it) passes the f32 sum.
 
+A training step differentiates all of it: :func:`mm_out_f32` has a
+gradient of its own (:class:`MmOutF32`), and the flash kernel's wrapper
+goes through its ``autograd.Function`` when a gradient is needed.
+
 Three routes go to the port's hand-written kernels
 (:mod:`audio_rag_tpu_torch.ops.kernels`): :func:`_attend` sends unmasked
 attention with D ≤ 128 to ``flash_attention``, and :func:`linear_q8` sends
@@ -53,6 +57,7 @@ __all__ = [
     "Params",
     "mm_f32",
     "mm_out_f32",
+    "MmOutF32",
     "linear",
     "quantize_linear",
     "q4_tiles",
@@ -101,9 +106,39 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mm_out_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a (..., din) @ w (din, dout) of bf16 CUDA tensors on the tensor
     cores, returned in f32: exact products summed in f32 and not rounded
-    to bf16 (``aten::mm.dtype``, which PyTorch has for CUDA only)."""
-    y = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+    to bf16 (``aten::mm.dtype``, which PyTorch has for CUDA only). Where a
+    gradient is needed it goes through :class:`MmOutF32`."""
+    rows = a.reshape(-1, a.shape[-1])
+    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        y = MmOutF32.apply(rows, w)
+    else:
+        y = torch.mm(rows, w, out_dtype=torch.float32)
     return y.reshape(*a.shape[:-1], w.shape[-1])
+
+
+class MmOutF32(torch.autograd.Function):
+    """``torch.mm(a, w, out_dtype=f32)`` of 2-D bf16 tensors with a
+    gradient through the same op: dA = dY·Wᵀ and dW = Aᵀ·dY with dY
+    rounded to the operands' dtype, summed in f32, then cast to each
+    input's dtype, as XLA transposes a bf16 dot with an f32 result. In
+    :func:`linear` the f32 result is rounded to bf16 after the bias, so the
+    gradient that reaches dY holds bf16 values and its rounding is exact."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, w = ctx.saved_tensors
+        g = dy.to(a.dtype)
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(g, w.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(a.t(), g, out_dtype=torch.float32).to(w.dtype)
+        return da, dw
 
 
 def linear(p: Params, x: torch.Tensor,

@@ -30,6 +30,13 @@ raises on input its kernel does not take; a CUDA tensor goes to the kernel
 the same function beside it. There is no fallback from a failed build or
 launch. Each launch adds one to :data:`LAUNCHES`.
 
+Gradients: a kernel writes a fresh tensor that autograd cannot see
+through, so :func:`flash_attention` goes through :class:`FlashAttentionFn`
+whenever a gradient is needed (the kernel forward, the attention gradient
+in f32 torch ops backward), and every other wrapper raises when grad mode
+is on and an input requires grad: nothing is silently detached. None of
+the TPU kernels had a reverse rule; training on the TPU never reached them.
+
 Kernels launch from more than one thread (the streaming mux's worker, the
 caller's, a query coalescer's): :func:`build`, :func:`load` and the first
 use of a kernel hold the lock of the library file they make or open, so
@@ -53,6 +60,8 @@ from typing import NamedTuple
 
 import torch
 
+from audio_rag_tpu_torch.device import full_f32_matmul
+
 __all__ = [
     "KERNELS",
     "LAUNCHES",
@@ -64,6 +73,8 @@ __all__ = [
     "dequant_q4w",
     "flash_attention",
     "flash_attention_plain",
+    "flash_attention_backward",
+    "FlashAttentionFn",
     "matmul_q8w",
     "matmul_q8w_plain",
     "matmul_q4w",
@@ -266,7 +277,14 @@ def _entry(name: str):
 
 def _route(name: str, *tensors: torch.Tensor) -> bool:
     """True → launch the kernel (all CUDA, one device); False → plain
-    version (all CPU). Anything else raises."""
+    version (all CPU). Anything else raises, and so does a call that
+    autograd would have to differentiate: grad mode on and an input that
+    requires grad (the kernel's output would carry no gradient)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no "
+            "backward; call it under torch.no_grad() or "
+            "torch.inference_mode(), or on tensors that do not require grad")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
@@ -318,7 +336,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     describe q, k and v (16-byte aligned, positive strides of whole 16-byte
     units), other D a multiple of 16 with 16-byte strides through
     ``mma.sync``; everything else computes in f32 on the CUDA cores.
-    :data:`FLASH_VARIANTS` counts which kernel each launch ran."""
+    :data:`FLASH_VARIANTS` counts which kernel each launch ran. With grad
+    mode on and an input that requires grad the call goes through
+    :class:`FlashAttentionFn`, whose output carries the gradient."""
     name = "flash_attention"
     _check(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, name,
            f"need (B, H, T, D) q/k/v, got {tuple(q.shape)}, "
@@ -329,6 +349,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            "q and k/v disagree on batch, heads or features")
     kv_len = Tk if kv_len is None else int(kv_len)
     _check(1 <= kv_len <= Tk, name, f"kv_len {kv_len} outside [1, {Tk}]")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, kv_len)
+    return _flash_forward(q, k, v, kv_len)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_len: int) -> torch.Tensor:
+    """:func:`flash_attention` on checked shapes: the kernel on CUDA, the
+    plain version on the CPU."""
+    name = "flash_attention"
+    B, H, Tq, D = q.shape
     if not _route(name, q, k, v):
         return flash_attention_plain(q, k, v, kv_len)
     _check(q.dtype in _DTYPE_CODE and k.dtype == q.dtype
@@ -351,6 +382,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _COUNT_LOCK:
         FLASH_VARIANTS[_FLASH_VARIANT_NAMES[variant.value]] += 1
     return ov
+
+
+#: f32 bytes of one chunk's score tensor in :func:`flash_attention_backward`
+#: (four such tensors live at once: scores, probabilities, dP, dS)
+FLASH_BWD_CHUNK_BYTES = 1 << 27
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, kv_len: int | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_plain` at (q, k, v), whose
+    output was ``o``, for the output gradient ``do``: in f32 torch ops
+    (full f32 products), cast to each input's dtype. With S = q·kᵀ/√D
+    (keys ≥ ``kv_len`` masked) and P = softmax(S): dV = Pᵀ·dO,
+    dP = dO·Vᵀ, dS = P∘(dP − rowsum(dO∘O)), dQ = dS·K/√D, dK = dSᵀ·Q/√D.
+    P is recomputed over chunks of query rows of at most
+    :data:`FLASH_BWD_CHUNK_BYTES` of scores each, so large-v3's
+    (B, 20, 1500, 1500) scores are never held whole; dK and dV are summed
+    over the chunks in order (the same bits from call to call).
+
+    The TPU kernel has no counterpart: it has no reverse-mode rule, and
+    the JAX package trains through XLA's autodiff of its einsum attention
+    (``audio_rag_tpu/models/layers.py::_attend``), whose math this is."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    kv_len = Tk if kv_len is None else int(kv_len)
+    scale = D ** -0.5
+    rows = max(1, FLASH_BWD_CHUNK_BYTES // (4 * B * H * Tk))
+    with full_f32_matmul():
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        delta = (dof * o.float()).sum(-1, keepdim=True)  # rowsum(dO∘O)
+        dq = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+        dk = torch.zeros((B, H, Tk, D), dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        for r0 in range(0, Tq, rows):
+            r1 = min(Tq, r0 + rows)
+            qs = qf[:, :, r0:r1] * scale
+            s = torch.matmul(qs, kf.transpose(-1, -2))
+            if kv_len < Tk:
+                s[..., kv_len:] = float("-inf")
+            p = torch.softmax(s, dim=-1)
+            del s
+            dor = dof[:, :, r0:r1]
+            dv += torch.matmul(p.transpose(-1, -2), dor)
+            ds = p * (torch.matmul(dor, vf.transpose(-1, -2))
+                      - delta[:, :, r0:r1])
+            del p
+            dq[:, :, r0:r1] = torch.matmul(ds, kf) * scale
+            dk += torch.matmul(ds.transpose(-1, -2), qs)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient, the counterpart of XLA's
+    autodiff of the JAX package's einsum attention. Forward: the kernel on
+    CUDA (counted in :data:`LAUNCHES` as any launch), the plain version on
+    the CPU; it saves q, k, v and the output (the kernel emits no row
+    statistics: the backward recomputes them). Backward:
+    :func:`flash_attention_backward`, torch ops only, as the TPU kernel had
+    no backward of its own."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len: int):
+        o = _flash_forward(q, k, v, kv_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kv_len = kv_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, ctx.kv_len)
+        return dq, dk, dv, None
 
 
 # -- weight-quantized matmuls: the launch plan -----------------------------------

@@ -249,6 +249,28 @@ subset):
               ``matmul_q8w`` and cross-attention, the generator's
               ``matmul_q8w``), no kernel in TTS or the text sweep, no plain
               version on the card.
+17. train   — Whisper training through ``training/train.py``: (a) the
+              flash kernel with a gradient (``FlashAttentionFn``) at
+              tiny-synth's (64, 4, 300, 32) f32 and large-v3's
+              (4, 20, 1500, 64) f32 and bf16, head-strided: dq, dk, dv
+              against autograd of the plain version in full f32, the same
+              bits twice, the backward's ms beside its bound, forward +
+              backward against the plain version's and SDPA's; (b)
+              tiny-synth from ``init_whisper`` on 512 utterances of
+              ``scripts/train_asr_torch.py``'s dataset (TTS rows
+              included): every encoder leaf's gradient on the card
+              against the CPU's (the attention's q, k, v through the
+              flash kernel), the first three steps' losses and every
+              parameter after step 3 against the port's CPU run, then 300
+              steps whose last 10 losses must average below 0.75x the
+              first (step ms, steps/s, flash launches a step, peak
+              memory); (c) large-v3 at full width, seeded f32 weights,
+              B = 4, 3000 mel frames, 128 tokens, ``TrainConfig(
+              warmup_steps=2)``, four steps on one batch: losses and
+              gradients finite, every leaf's gradient norm nonzero, the
+              fourth loss below the first (step seconds, peak memory).
+              Only ``flash_attention`` may launch, 3 a tiny-synth step and
+              32 a large-v3 step.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
@@ -257,7 +279,8 @@ C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
 ``query`` after ``fallback``, ``answer`` after ``query``, ``stream``
 after ``answer``, ``profiles`` after ``stream``, ``queue`` after
 ``profiles`` (it needs profiles' pipeline), ``api`` after ``queue`` (on
-profiles' pipeline too), ``eval`` after ``api``.
+profiles' pipeline too), ``eval`` after ``api``, ``train`` after
+``eval``.
 At each phase's end the device-memory manager unloads what it booked and
 a fresh manager and engine replace it (:func:`free_card`). The
 ``answer`` phase's
@@ -5356,16 +5379,372 @@ def phase_beam(torch, K) -> dict:
     return ingest_run(torch, K, tag, rag, profile, wav, BEAM_WB)
 
 
+# -- phase 17: train -----------------------------------------------------------
+
+TRAIN_N, TRAIN_STEPS = 512, 300  # (b): utterances, steps on the card
+#: (a): the shapes the training path gives the flash kernel: tiny-synth's
+#: encoder (B 64), large-v3's at B 4, and bf16 on the encoder's
+#: head-strided view
+TRAIN_FLASH = [((64, 4, 300, 32), "float32", "bthd"),
+               ((4, 20, 1500, 64), "float32", "bthd"),
+               ((4, 20, 1500, 64), "bfloat16", "bthd")]
+
+
+def train_script():
+    """``scripts/train_asr_torch.py`` as a module (its ``main`` does not
+    run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_asr_torch", ROOT / "scripts" / "train_asr_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def flash_grad_case(torch, K, shape, dtype_name: str, layout: str,
+                    device: str = "cuda", timed: bool = True) -> dict:
+    """The flash call with a gradient (``FlashAttentionFn``: the kernel
+    forward, the torch-op backward) against autograd of the plain version
+    on the same device in full f32; the same bits from a second call;
+    times of the backward alone, of forward + backward, of the plain
+    version's forward + backward and of SDPA's (the library column)."""
+    from audio_rag_tpu_torch.device import full_f32
+
+    dtype = getattr(torch, dtype_name)
+    B, H, T, D = shape
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def base():
+        dims = (B, T, H, D) if layout == "bthd" else shape
+        return torch.randn(dims, generator=g, device=device).to(dtype) \
+            .requires_grad_(True)
+
+    def view(x):
+        return x.transpose(1, 2) if layout == "bthd" else x
+
+    bases = [base() for _ in range(3)]
+    q, k, v = (view(x) for x in bases)
+    do = torch.randn((B, H, T, D), generator=g, device=device).to(dtype)
+    with full_f32(device):
+        n0 = K.LAUNCHES[FLASH]
+        out = K.flash_attention(q, k, v)
+        launched = K.LAUNCHES[FLASH] - n0
+        got = torch.autograd.grad(out, bases, do)
+        again = torch.autograd.grad(K.flash_attention(q, k, v), bases, do)
+        ref = torch.autograd.grad(K.flash_attention_plain(q, k, v), bases,
+                                  do)
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, ref)]
+    top = max(r.float().abs().max().item() for r in ref)
+    # f32: the same math as autograd's but for rowsum(dO∘O), which reads
+    # the kernel's output (sums in another order); bf16: that output and
+    # each gradient are rounded to bf16 (2^-8 relative) and the kernel
+    # rounds P to bf16 before P·V: allow two bf16 ulps at the largest
+    tol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * max(1.0, top)
+    row = {"shape": list(shape), "dtype": dtype_name, "layout": layout,
+           "forward_launches": launched,
+           "max_abs_err": {n: e for n, e in zip("qkv", errs)}, "tol": tol,
+           "same_bits_twice": all(torch.equal(a, b)
+                                  for a, b in zip(got, again))}
+    ok = (max(errs) <= tol and row["same_bits_twice"] and launched
+          == (1 if device == "cuda" else 0))
+    if timed:
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        od = out.detach()
+
+        def fwd_bwd(fn):
+            def run():
+                with full_f32(device):
+                    torch.autograd.grad(fn(q, k, v), bases, do)
+            return run
+
+        def sdpa(q, k, v):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+        iters = 5
+        with full_f32(device):
+            row["backward_ms"] = time_ms(torch, lambda: (
+                K.flash_attention_backward(qd, kd, vd, od, do)), iters)
+        row["fwd_bwd_ms"] = time_ms(torch, fwd_bwd(K.flash_attention),
+                                    iters)
+        row["plain_fwd_bwd_ms"] = time_ms(
+            torch, fwd_bwd(K.flash_attention_plain), iters)
+        row["library_fwd_bwd_ms"] = time_ms(torch, fwd_bwd(sdpa), iters)
+        esize = torch.empty((), dtype=dtype).element_size()
+        # q, k, v, o, dO read once, dq, dk, dv written once; five f32
+        # products of B·H·T·T·D (S again, dV, dP, dQ, dK)
+        row["backward_bound_ms"], row["backward_bound_by"] = bound_ms(
+            8 * B * H * T * D * esize, 10 * B * H * T * T * D, "f32")
+    return row, ok
+
+
+def encode_grads(torch, params: dict, dims, mel, w, device: str) -> dict:
+    """Gradients of Σ(encode(mel)·w) for every encoder leaf, on
+    ``device``, forward and backward in full f32."""
+    from audio_rag_tpu_torch.device import full_f32
+    from audio_rag_tpu_torch.models.whisper import encode
+
+    leaves = {}
+
+    def place(tree, prefix=""):
+        out = {}
+        for key, val in tree.items():
+            name = f"{prefix}/{key}" if prefix else key
+            if isinstance(val, dict):
+                out[key] = place(val, name)
+            else:
+                out[key] = leaves[name] = val.to(device).clone() \
+                    .requires_grad_(True)
+        return out
+
+    p = place(params)
+    with full_f32(device):
+        loss = (encode(p, dims, mel.to(device), dtype=torch.float32)
+                * w.to(device)).sum()
+        loss.backward()
+    return {name: t.grad.cpu() for name, t in leaves.items()
+            if name.startswith("encoder/")}
+
+
+def check_encode_grads(torch, K, dims, params, mel) -> dict:
+    """Fault 14 on the card: every encoder leaf's gradient (the attention's
+    q, k and v through the flash kernel among them) against the CPU's."""
+    g = torch.Generator().manual_seed(4)
+    w = torch.randn((mel.shape[0], dims.n_audio_ctx, dims.n_audio_state),
+                    generator=g)
+    n0 = K.LAUNCHES[FLASH]
+    card = encode_grads(torch, params, dims, mel, w, "cuda")
+    launched = K.LAUNCHES[FLASH] - n0
+    cpu = encode_grads(torch, params, dims, mel, w, "cpu")
+    rel = {n: ((card[n] - cpu[n]).abs().max()
+               / cpu[n].abs().max().clamp(min=1e-30)).item() for n in cpu}
+    # f32 on both sides: the card sums in other orders (conv, matmuls, the
+    # flash kernel), a few ulps of f32 on each leaf's largest gradient
+    tol = 1e-4
+    worst = max(rel, key=rel.get)
+    out = {"leaves": len(rel), "worst_leaf": worst, "worst_rel_err": rel[worst],
+           "attn_rel_err": {n.split("/")[-2]: rel[n] for n in rel
+                            if "/attn/" in n and n.endswith("/w")},
+           "conv_rel_err": {n.split("/")[-2]: rel[n] for n in rel
+                            if "/conv" in n and n.endswith("/w")},
+           "tol": tol, "flash_launches": launched}
+    print("train encode grads card vs cpu", json.dumps(out), flush=True)
+    if rel[worst] > tol or launched != dims.n_audio_layer:
+        fail(f"train: encode's gradients on the card differ from the CPU's "
+             f"(fault 14): {out}")
+    return out
+
+
+def train_tiny(torch, K, device: str = "cuda", n: int = TRAIN_N,
+               steps: int = TRAIN_STEPS) -> dict:
+    """(b) tiny-synth from ``init_whisper``: ``n`` utterances of the
+    trainer's dataset (TTS rows included), three steps on the card
+    against the port's CPU, then ``steps`` steps on the card."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.config import TTSConfig
+    from audio_rag_tpu_torch.models.whisper import (
+        WHISPER_PRESETS, SpecialTokens, init_whisper)
+    from audio_rag_tpu_torch.tts.neural import NeuralTTS
+
+    tat = train_script()
+    dims = WHISPER_PRESETS["tiny-synth"]
+    st = SpecialTokens.for_dims(dims)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    texts = tat.make_utterance_texts(rng, n, tat.corpus_lexicon(),
+                                     double_p=0.10)
+    tts = NeuralTTS(TTSConfig(backend="jax"), device=device)
+    n_tts = int(n * tat.TTS_FRACTION)
+    audio, tokens, targets, mask = tat.build_dataset(
+        rng, texts, st, 2 * dims.n_audio_ctx, tts=tts, n_tts=n_tts)
+    perm = np.random.default_rng(7).permutation(n)
+    arrays = [a[perm] for a in (audio, tokens, targets, mask)]
+    data = tat.device_batches(torch, *arrays, dims.n_mels, device)
+    data_s = time.perf_counter() - t0
+    init = init_whisper(dims, seed=0, device="cpu")
+    out: dict = {"utterances": n, "tts_rows": n_tts, "dataset_s": data_s}
+
+    if device == "cuda":
+        check_encode_grads(torch, K, dims, init,
+                           data["mel"][0, :4].cpu())
+        # the port's CPU run of the first three steps on the same audio
+        t0 = time.perf_counter()
+        cpu_data = tat.device_batches(
+            torch, *[a[:3 * tat.BATCH] for a in arrays], dims.n_mels, "cpu")
+        snap: dict = {}
+        cpu_params, cpu_losses, _ = tat.train(
+            torch, cpu_data, 3, "cpu", params=init, schedule_steps=steps)
+        out["cpu_3_steps_s"] = time.perf_counter() - t0
+
+        def keep(i, params):
+            if i == 2:
+                snap.update({n_: t.detach().cpu().clone() for n_, t in
+                             _flat(params).items()})
+    else:
+        keep = None
+    K.reset_launches()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with plain_calls(K, K.KERNELS) as plain:
+        params, losses, seconds = tat.train(
+            torch, data, steps, device, params=init, chunk=100,
+            schedule_steps=steps, after_step=keep)
+    counts = launch_counts(K)
+    out.update({"steps": steps, "seconds": seconds,
+                "step_ms": seconds / steps * 1e3, "steps_per_s": steps / seconds,
+                "losses_first_3": losses[:3],
+                "loss_last_10_mean": float(np.mean(losses[-10:])),
+                "flash_launches_per_step": counts[FLASH] / steps,
+                "plain_calls": sum(plain.values())})
+    if device == "cuda":
+        out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        cpu_flat = _flat(cpu_params)
+        # step 1's update is zero (lr 0); steps 2 and 3 move each weight by
+        # at most ~lr (Adam), lr_3 = 2e-5: the sides may part where f32
+        # gradients of other summation orders differ, a small share of it
+        p_err = max((snap[n_] - cpu_flat[n_].detach()).abs().max().item()
+                    for n_ in cpu_flat)
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(losses[:3],
+                                                         cpu_losses))
+        out.update({"cpu_losses_first_3": cpu_losses,
+                    "loss_rel_err": l_err, "loss_tol": 1e-5,
+                    "param_max_abs_err_after_3": p_err, "param_tol": 2e-6})
+    print("train tiny-synth", json.dumps(out), flush=True)
+    if device == "cuda" and (out["loss_rel_err"] > out["loss_tol"]
+                             or out["param_max_abs_err_after_3"]
+                             > out["param_tol"]):
+        fail(f"train tiny-synth: the card's first three steps differ from "
+             f"the CPU's: {out}")
+    if not out["loss_last_10_mean"] < 0.75 * losses[0]:
+        fail(f"train tiny-synth: the loss did not fall below 0.75x its "
+             f"first value in {steps} steps: {out}")
+    expect = dims.n_audio_layer * steps if device == "cuda" else 0
+    if counts[FLASH] != expect:
+        fail(f"train tiny-synth: expected {expect} flash launches in "
+             f"{steps} steps, got {counts[FLASH]}")
+    other = {k: c for k, c in counts.items() if k not in (FLASH, WGMMA) and c}
+    if other or (device == "cuda" and out["plain_calls"]):
+        fail(f"train tiny-synth: other kernels launched ({other}) or plain "
+             f"versions called ({plain})")
+    return counts
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}/{key}" if prefix else key
+        out.update(_flat(val, name) if isinstance(val, dict)
+                   else {name: val})
+    return out
+
+
+def train_large(torch, K, device: str = "cuda", preset: str = "large-v3",
+                B: int = 4, S: int = 128, steps: int = 4) -> dict:
+    """(c) ``preset`` at full width from seeded f32 weights:
+    ``TrainConfig(warmup_steps=2)``, ``steps`` steps on one batch of B
+    30 s windows of speech and S random tokens; every loss and gradient
+    finite, every leaf's gradient norm nonzero, the last loss below the
+    first."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.models.whisper import (
+        WHISPER_PRESETS, init_whisper)
+    from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, log_mel_batch
+    from audio_rag_tpu_torch.training import (
+        TrainConfig, init_train_state, make_train_step)
+
+    dims = WHISPER_PRESETS[preset]
+    n_samp = 2 * dims.n_audio_ctx * HOP_LENGTH
+    wav = long_speech(B * n_samp / 16000, seed=9).reshape(B, n_samp)
+    rng = np.random.default_rng(9)
+    seq = rng.integers(0, min(dims.n_vocab, 50257), (B, S + 1))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        mel = log_mel_batch(torch.from_numpy(wav).to(device),
+                            n_mels=dims.n_mels)
+    batch = {"mel": mel, "tokens": torch.from_numpy(seq[:, :-1]),
+             "targets": torch.from_numpy(seq[:, 1:]),
+             "mask": torch.ones((B, S))}
+    cfg = TrainConfig(warmup_steps=2)
+    params, opt, state = init_train_state(
+        init_whisper(dims, seed=0, device=device), cfg, dims, device)
+    gc.collect()
+    step = make_train_step(dims, cfg, opt)
+    leaves = list(_flat(params).items())
+    K.reset_launches()
+    losses, secs, zero, bad = [], [], set(), set()
+    with plain_calls(K, K.KERNELS) as plain:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, batch)
+            norms = torch.stack([t.grad.norm() for _, t in leaves]).tolist()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            zero |= {n for (n, _), v in zip(leaves, norms) if v == 0.0}
+            bad |= {n for (n, _), v in zip(leaves, norms)
+                    if not math.isfinite(v)}
+    counts = launch_counts(K)
+    out = {"preset": preset, "B": B, "mel_frames": 2 * dims.n_audio_ctx,
+           "S": S, "steps": steps, "losses": losses, "step_s": secs,
+           "leaves": len(leaves), "params": sum(t.numel() for _, t in leaves),
+           "flash_launches": counts[FLASH],
+           "plain_calls": sum(plain.values())}
+    if device == "cuda":
+        out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train {preset}", json.dumps(out), flush=True)
+    if zero or bad or not all(math.isfinite(x) for x in losses):
+        fail(f"train {preset}: gradients zero {sorted(zero)[:8]} or not "
+             f"finite {sorted(bad)[:8]}, losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train {preset}: the loss at step {steps} is not below step "
+             f"1's: {losses}")
+    expect = dims.n_audio_layer * steps if device == "cuda" else 0
+    if counts[FLASH] != expect or any(
+            c for k, c in counts.items() if k not in (FLASH, WGMMA)) or (
+            device == "cuda" and out["plain_calls"]):
+        fail(f"train {preset}: expected {expect} flash launches, no other "
+             f"kernel and no plain version, got {counts}, plain {plain}")
+    del params, state, opt, step, leaves
+    return counts
+
+
+def phase_train(torch, K) -> dict:
+    """(a) the flash gradient at the training path's shapes, (b)
+    tiny-synth from ``init_whisper`` (the encoder's gradients and three
+    steps against the CPU, then 300 steps), (c) large-v3 at full width;
+    returns launches by path and the flash rows' gradient columns."""
+    t_phase = time.perf_counter()
+    rows = []
+    for shape, dtype, layout in TRAIN_FLASH:
+        row, ok = flash_grad_case(torch, K, shape, dtype, layout)
+        print("train flash grad", json.dumps(row), flush=True)
+        if not ok:
+            fail(f"train: the flash gradient at {shape} {dtype} differs from "
+                 f"the plain version's autograd: {row}")
+        rows.append(row)
+    free_card(torch)
+    by_path = {"train_tiny": train_tiny(torch, K)}
+    free_card(torch)
+    by_path["train_large_v3"] = train_large(torch, K)
+    free_card(torch)
+    print(f"train phase_s {time.perf_counter() - t_phase:.1f} "
+          f"({card_line()})", flush=True)
+    return {"launches": by_path, "flash_grad": rows}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
-                            "answer,stream,profiles,queue,api,eval,full,"
-                            "full_kv4,capacity,beam",
+                            "answer,stream,profiles,queue,api,eval,train,"
+                            "full,full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
                          "diarize,fallback,query,answer,stream,profiles,"
-                         "queue,api,eval,full,full_kv4,capacity,beam (queue "
-                         "and api need profiles)")
+                         "queue,api,eval,train,full,full_kv4,capacity,beam "
+                         "(queue and api need profiles)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -5448,6 +5827,11 @@ def main() -> None:
     if "eval" in phases:
         by_path.update(phase_eval(torch, K))
         free_card(torch, "eval")
+    flash_grad: list = []
+    if "train" in phases:
+        trained = phase_train(torch, K)
+        by_path.update(trained["launches"])
+        flash_grad = trained["flash_grad"]
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)
         free_card(torch, "full")  # two large-v3 copies need not coexist
@@ -5480,6 +5864,8 @@ def main() -> None:
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
             **({"contiguous": m.get("contiguous")} if name == FLASH else {}),
+            **({"train": flash_grad} if name == FLASH and flash_grad
+               else {}),
             **({"llm": m["llm"]} if "llm" in m else {}),
             "per": m.get("per"),
         })

@@ -537,3 +537,126 @@ def test_onehot_reorder_is_exact_with_tf32_on(cuda):
         torch.set_float32_matmul_precision(saved)
     for a, b in zip(got, K.beam_reorder_kv_plain(sk, sv, idx)):
         assert torch.equal(_bits(a), _bits(b))
+
+
+# -- gradients (fault 14) ------------------------------------------------------
+
+def _encoder_grads(params, dims, mel, w, device):
+    """Gradients of Σ(encode(mel)·w) for every encoder leaf on ``device``,
+    forward and backward in full f32."""
+    from audio_rag_tpu_torch.device import full_f32
+    from audio_rag_tpu_torch.models.whisper import encode
+
+    leaves = {}
+
+    def place(tree, prefix):
+        out = {}
+        for key, val in tree.items():
+            name = f"{prefix}/{key}"
+            if isinstance(val, dict):
+                out[key] = place(val, name)
+            else:
+                out[key] = leaves[name] = (val.to(device).clone()
+                                           .requires_grad_(True))
+        return out
+
+    p = {"encoder": place(params["encoder"], "encoder")}
+    with full_f32(device):
+        (encode(p, dims, mel.to(device), dtype=torch.float32)
+         * w.to(device)).sum().backward()
+    return {name: t.grad for name, t in leaves.items()}
+
+
+def test_encode_gradient_on_card_matches_cpu(cuda):
+    """Fault 14: the flash kernel's output carried no gradient on CUDA, so
+    the encoder attention's q, k and v (and what lies below them) got the
+    residual path's gradient only. Every encoder leaf's gradient on the
+    card is within 1e-4 of its largest CPU value (f32 on both sides, sums
+    in other orders), and the card's encode launched the kernel once a
+    layer."""
+    from audio_rag_tpu_torch.models.whisper import (WHISPER_PRESETS,
+                                                    init_whisper)
+
+    dims = WHISPER_PRESETS["tiny-synth"]
+    params = init_whisper(dims, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    mel = torch.randn((2, dims.n_mels, 2 * dims.n_audio_ctx), generator=g)
+    w = torch.randn((2, dims.n_audio_ctx, dims.n_audio_state), generator=g)
+    n = K.LAUNCHES["flash_attention"]
+    card = _encoder_grads(params, dims, mel, w, cuda)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == n + dims.n_audio_layer
+    cpu = _encoder_grads(params, dims, mel, w, "cpu")
+    for name, ref in cpu.items():
+        got = card[name]
+        assert got is not None, f"{name}: no gradient on the card"
+        tol = 1e-4 * ref.abs().max().item()
+        torch.testing.assert_close(got.cpu(), ref, atol=tol, rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("shape,dtype,kv_len,layout", [
+    ((2, 4, 300, 32), torch.float32, None, "bthd"),
+    ((2, 3, 200, 64), torch.bfloat16, None, "bthd"),
+    ((2, 3, 200, 64), torch.float32, 150, "bhtd"),
+])
+def test_flash_gradient_on_card(cuda, shape, dtype, kv_len, layout):
+    """``FlashAttentionFn``: one kernel launch forward, dq/dk/dv within
+    1e-4 (f32) or two bf16 ulps (bf16: the kernel's output and each
+    gradient rounded) of the largest gradient of autograd through the
+    plain version, and the same bits from a second call."""
+    from audio_rag_tpu_torch.device import full_f32
+
+    B, H, T, D = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    base_shape = (B, T, H, D) if layout == "bthd" else shape
+    bases = [torch.randn(base_shape, generator=g, device=cuda).to(dtype)
+             .requires_grad_(True) for _ in range(3)]
+    q, k, v = (x.transpose(1, 2) if layout == "bthd" else x for x in bases)
+    do = torch.randn((B, H, T, D), generator=g, device=cuda).to(dtype)
+    with full_f32(cuda):
+        got = torch.autograd.grad(
+            _launched("flash_attention",
+                      lambda: K.flash_attention(q, k, v, kv_len)), bases, do)
+        again = torch.autograd.grad(K.flash_attention(q, k, v, kv_len),
+                                    bases, do)
+        ref = torch.autograd.grad(K.flash_attention_plain(q, k, v, kv_len),
+                                  bases, do)
+    top = max(1.0, max(r.float().abs().max().item() for r in ref))
+    tol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * top
+    for a, b, c in zip(got, ref, again):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+        assert torch.equal(a, c)
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """Every wrapper but flash raises when grad mode is on and an input
+    requires grad (its kernel's output would carry no gradient), and runs
+    under ``torch.no_grad()``."""
+    x = torch.randn((4, 256), device=cuda, requires_grad=True)
+    w8 = torch.ones((256, 512), dtype=torch.int8, device=cuda)
+    w4 = torch.ones((128, 512), dtype=torch.int8, device=cuda)
+    s8 = torch.ones((512,), device=cuda)
+    s4 = torch.ones((2, 512), device=cuda)
+    q = torch.randn((1, 2, 1, 64), device=cuda, requires_grad=True)
+    kv8 = torch.ones((1, 2, 64, 16), dtype=torch.int8, device=cuda)
+    kv4 = torch.ones((1, 2, 32, 16), dtype=torch.int8, device=cuda)
+    s11 = torch.ones((1, 2, 1, 1), device=cuda)
+    s1d = torch.ones((1, 2, 1, 64), device=cuda)
+    sc = torch.zeros((1, 16, K.SELF_LANES), device=cuda)
+    cache = torch.zeros((1, 2, 1, 4, 8), device=cuda, requires_grad=True)
+    idx = torch.tensor([1, 0], device=cuda)
+    calls = [
+        lambda: K.matmul_q8w(x, w8, s8),
+        lambda: K.matmul_q4w(x, w4, s4),
+        lambda: K.decode_cross_attention_q8(q, kv8, kv8, s11, s11),
+        lambda: K.decode_cross_attention_q4(q, kv4, kv4, s1d, s1d),
+        lambda: K.decode_self_attention_q8(q, kv8, kv8, sc),
+        lambda: K.beam_reorder_kv(cache, cache, idx),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

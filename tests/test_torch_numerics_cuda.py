@@ -266,3 +266,21 @@ def test_sampled_greedy_decode_on_card_equals_the_cpus(cuda):
                                     rng=R.PRNGKey(int(t * 100)))[0]
             out.append(toks.cpu())
         assert torch.equal(out[0], out[1])
+
+
+def test_bf16_linear_gradient_rounds_once(cuda):
+    """``mm_out_f32``'s gradient (``MmOutF32``): the input's and the
+    weight's gradients of a bf16 ``linear`` are the f32 sums of exact
+    products of the bf16 values (dY rounded to bf16 is exact: it comes
+    through ``linear``'s final rounding), rounded to bf16 once."""
+    x = _randn((48, 320), 11).to(torch.bfloat16)
+    w = _randn((320, 96), 12, 320 ** -0.5).to(torch.bfloat16)
+    dy = _randn((48, 96), 13).to(torch.bfloat16)
+    xc = x.to(cuda).requires_grad_(True)
+    wc = w.to(cuda).requires_grad_(True)
+    y = L.linear({"w": wc}, xc, torch.bfloat16)
+    y.backward(dy.to(cuda))
+    dx = dy.double() @ w.double().t()
+    dw = x.double().t() @ dy.double()
+    _check(xc.grad, dx, 96, dy.double().abs() @ w.double().abs().t(), 8)
+    _check(wc.grad, dw, 48, x.double().abs().t() @ dy.double().abs(), 8)

@@ -177,6 +177,7 @@ def test_sources_of_port_and_chip_smoke_import_no_jax():
     files = [ROOT / "chip_smoke.py",
              ROOT / "scripts" / "run_torch.py",
              ROOT / "scripts" / "eval_torch.py",
+             ROOT / "scripts" / "train_asr_torch.py",
              ROOT / "tests" / "torch_api_client.py",
              *sorted((ROOT / "audio_rag_tpu_torch").rglob("*.py"))]
     for path in files:
