@@ -9,8 +9,11 @@ decoder pass over the decoded tokens collecting the head-averaged
 cross-attention of the upper decoder layers, and DTW word times
 (:mod:`audio_rag_tpu_torch.asr.word_timing`) that also widen each segment's
 bounds; segments that get no words take evenly spread ones. The parameters
-come from the committed asset for "tiny-synth" and from a seeded init for
-the other presets; ``compute_type="bfloat16"`` stores and computes in bf16;
+come from ``checkpoint_path`` (a converted checkpoint,
+``{checkpoint_path}/whisper.safetensors``; a missing one warns and falls
+through, as in the JAX backend), else the committed asset for "tiny-synth"
+and a seeded init for the other presets; ``compute_type="bfloat16"``
+stores and computes in bf16 (each leaf cast once from its stored dtype);
 the quantization switches of ``ASRConfig`` pick the decode profile as the
 JAX backend does (int4 beats int8; ``lm_head_int4`` only with
 ``decoder_int8`` and without ``decoder_int4``; ``self_kv_int8``), and with
@@ -68,9 +71,10 @@ from audio_rag_tpu_torch.checkpoint import (
     ASSETS_DIR,
     host_tree,
     load_npz_asset,
+    restore_params,
 )
 from audio_rag_tpu_torch.config import ASRConfig
-from audio_rag_tpu_torch.core.exceptions import ConfigError, TranscriptionError
+from audio_rag_tpu_torch.core.exceptions import TranscriptionError
 from audio_rag_tpu_torch.core.types import TranscriptSegment, Word
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
@@ -95,6 +99,7 @@ from audio_rag_tpu_torch.ops import random as jrandom
 from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_batch
 from audio_rag_tpu_torch.resources.estimates import whisper_gb
 from audio_rag_tpu_torch.resources.manager import get_resource_manager
+from audio_rag_tpu_torch.text.tokenizer import refuse_tokenizer_files
 from audio_rag_tpu_torch.utils.decorators import timed
 from audio_rag_tpu_torch.weights import whisper_params
 
@@ -128,8 +133,9 @@ class WhisperASR:
                  weights: dict | str | Path | None = None):
         """``weights``: a Whisper tree (``init_whisper``'s layout, numpy
         arrays or tensors) or the path of an ``.npz`` asset, in place of
-        what ``load`` reads by default (the committed asset for
-        tiny-synth, seeded weights otherwise): a freshly trained tree."""
+        what ``load`` reads by default (``checkpoint_path``, the committed
+        asset for tiny-synth, seeded weights otherwise): a freshly trained
+        tree."""
         self.config = config or ASRConfig()
         self._weights = weights
         size = self.config.model_size
@@ -177,11 +183,9 @@ class WhisperASR:
     def load(self) -> None:
         if self.is_loaded:
             return
-        if self.config.checkpoint_path:
-            raise ConfigError(
-                "asr.checkpoint_path: converted Whisper checkpoints are not "
-                "ported (no converted checkpoint is in the repository)",
-                context={"checkpoint_path": self.config.checkpoint_path})
+        ckpt = self.config.checkpoint_path
+        # the JAX backend decodes with them (WhisperTokenizer)
+        refuse_tokenizer_files(ckpt)
         rm = get_resource_manager()
         rm.ensure_hbm(self.hbm_required_gb, for_model="asr")
         tree = None
@@ -192,7 +196,11 @@ class WhisperASR:
             if tree is None:
                 raise TranscriptionError(
                     f"Whisper weights {str(self._weights)!r} not found")
-        elif self.config.model_size == "tiny-synth":
+        elif ckpt and (tree := restore_params(ckpt, "whisper")) is None:
+            log.warning("checkpoint %s missing whisper params; falling "
+                        "back", ckpt)
+        if tree is None and self._weights is None \
+                and self.config.model_size == "tiny-synth":
             tree = load_npz_asset(ASSETS_DIR / "asr_tiny_synth.npz")
             if tree is None:
                 raise TranscriptionError("asr_tiny_synth.npz asset missing")

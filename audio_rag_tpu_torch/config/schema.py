@@ -26,7 +26,7 @@ them at those defaults and refuses any other value.
 
 Values that name a feature the port has not got are held here and raise
 ``ConfigError`` where they are used: ``retrieval.backend`` "fake"
-(registered nowhere in the JAX package either) and any ``checkpoint_path`` (no converted checkpoint is read).
+(registered nowhere in the JAX package either).
 ``resources.max_hbm_gb`` and ``resources.pin_query_models`` set the
 device-memory manager's budget and pins (``AudioRAG``), and the API's
 idle reaper evicts what stayed idle ``unload_after_idle_seconds``

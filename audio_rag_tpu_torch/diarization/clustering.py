@@ -7,7 +7,8 @@ from the VAD (:mod:`audio_rag_tpu_torch.asr.vad`), 1.5 s windows every
 embeddings on the device in fixed batches of 64 or 512 windows (the tail
 zero-padded), then spectral clustering of the L2-normalized f32
 embeddings on the host, and labeled windows merged into per-speaker
-segments.
+segments. A converted ECAPA-TDNN (``checkpoint_path``) embeds its windows'
+speechbrain filterbanks instead of the log-mel, in f32.
 """
 
 from __future__ import annotations
@@ -20,12 +21,17 @@ import torch
 
 from audio_rag_tpu_torch.asr.vad import VADOptions, speech_segments
 from audio_rag_tpu_torch.audio.io import decode_audio
-from audio_rag_tpu_torch.checkpoint import ASSETS_DIR
+from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, stored_elements
 from audio_rag_tpu_torch.config import DiarizationConfig
 from audio_rag_tpu_torch.core.types import TranscriptSegment
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.diarization.spectral import spectral_cluster
 from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
+from audio_rag_tpu_torch.models.ecapa import (
+    ecapa_embed,
+    ecapa_fbank,
+    is_ecapa_params,
+)
 from audio_rag_tpu_torch.models.speaker import (
     SPEAKER_PRESETS,
     SpeakerDims,
@@ -74,9 +80,13 @@ def window_embeddings(wav: np.ndarray, sr: int,
         m = min(batch, rem)
         block = np.zeros((batch, win_n), np.float32)
         block[:m] = frames[base: base + m]
-        mel = log_mel_batch(torch.from_numpy(block).to(device),
-                            n_mels=dims.n_mels, global_norm=False)
-        emb = speaker_embed(params, dims, mel, dtype=torch.float32)
+        wav_b = torch.from_numpy(block).to(device)
+        if is_ecapa_params(params):
+            emb = ecapa_embed(params, ecapa_fbank(wav_b, n_mels=dims.n_mels),
+                              dtype=torch.float32)
+        else:
+            mel = log_mel_batch(wav_b, n_mels=dims.n_mels, global_norm=False)
+            emb = speaker_embed(params, dims, mel, dtype=torch.float32)
         chunks.append(emb[:m].cpu().numpy())
         base += m
     return starts, np.concatenate(chunks, axis=0)
@@ -115,11 +125,18 @@ class ClusteringDiarizer:
                   else "titanet-jax")
         self.dims = SPEAKER_PRESETS[preset]
         self._allow_asset = self.config.model != "test"
-        #: the manager's booking: the encoder that load() will take (the
-        #: committed asset's shape when it is there)
-        self.hbm_required_gb = speaker_gb(
-            SPEAKER_PRESETS["small"] if self._allow_asset
-            and (ASSETS_DIR / "speaker_small.npz").exists() else self.dims)
+        #: the manager's booking: the encoder that load() will take (a
+        #: converted checkpoint's tensors in f32, else the committed
+        #: asset's shape when it is there)
+        n_ckpt = (stored_elements(self.config.checkpoint_path, "speaker")
+                  if self.config.checkpoint_path else None)
+        if n_ckpt is not None:
+            self.hbm_required_gb = 4 * n_ckpt / 1e9
+        else:
+            self.hbm_required_gb = speaker_gb(
+                SPEAKER_PRESETS["small"] if self._allow_asset
+                and (ASSETS_DIR / "speaker_small.npz").exists()
+                else self.dims)
         self._params = None
         self.source: str | None = None
         self.timings: dict[str, float] = {}

@@ -4,7 +4,10 @@ Counterpart of ``audio_rag_tpu/embeddings/bge.py::BGEM3Embedder``: the same
 hash tokenizer, the same power-of-two ``_bucket`` padding of batch and
 length (−1 padding doubles as the mask), bf16 storage and compute, and the
 same ``_to_sparse`` rule (max weight over duplicate token ids, special
-tokens and non-positive weights dropped).
+tokens and non-positive weights dropped). Weights: ``checkpoint_path``
+(``{checkpoint_path}/bgem3.safetensors`` from ``convert_bgem3``, at the
+model's preset shapes), else the committed asset for "eval-small", else
+seeded.
 """
 
 from __future__ import annotations
@@ -12,9 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
+from audio_rag_tpu_torch.checkpoint import (
+    ASSETS_DIR,
+    load_npz_asset,
+    restore_params,
+)
 from audio_rag_tpu_torch.config import EmbeddingConfig
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import EmbeddingResult, SparseVector
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
@@ -22,7 +28,7 @@ from audio_rag_tpu_torch.models.bert import BERT_PRESETS, BertDims
 from audio_rag_tpu_torch.models.bgem3 import bgem3_forward, init_bgem3
 from audio_rag_tpu_torch.resources.estimates import bgem3_gb
 from audio_rag_tpu_torch.resources.manager import get_resource_manager
-from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer, pad_batch
+from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, pad_batch
 from audio_rag_tpu_torch.weights import bgem3_params
 from audio_rag_tpu_torch.utils.decorators import timed
 
@@ -47,7 +53,8 @@ class BGEM3Embedder:
         #: the manager's booking: the bf16 weights
         self.hbm_required_gb = bgem3_gb(self.dims)
         self._params = None
-        self._tok = HashWordTokenizer(self.dims.vocab)
+        self._tok = get_tokenizer(self.config.checkpoint_path,
+                                  self.dims.vocab)
 
     @property
     def is_loaded(self) -> bool:
@@ -56,15 +63,12 @@ class BGEM3Embedder:
     def load(self) -> None:
         if self.is_loaded:
             return
-        if self.config.checkpoint_path:
-            raise ConfigError(
-                "embedding.checkpoint_path: converted BGE-M3 checkpoints are "
-                "not ported (no converted checkpoint is in the repository)",
-                context={"checkpoint_path": self.config.checkpoint_path})
         rm = get_resource_manager()
         rm.ensure_hbm(self.hbm_required_gb, for_model="embeddings")
         tree = None
-        if self.config.model == "eval-small":
+        if self.config.checkpoint_path:
+            tree = restore_params(self.config.checkpoint_path, "bgem3")
+        if tree is None and self.config.model == "eval-small":
             tree = load_npz_asset(ASSETS_DIR / "retr_embedder_small.npz")
         if tree is not None:
             params = bgem3_params(tree, self.dims, self.device,

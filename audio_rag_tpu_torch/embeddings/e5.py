@@ -5,9 +5,12 @@ embed as ``"passage: …"`` and queries as ``"query: …"``, the states are
 mean-pooled over real tokens in f32 and L2-normalized; dense only.
 
 Model "test" keeps the tiny ``test`` preset, any other name XLM-R large
-shapes; the weights are seeded (``seed``), as the JAX embedder starts
-without files, and stored in bf16. Batches and lengths pad to the same
-power-of-two buckets as the JAX program (−1 padding doubles as the mask).
+shapes; the weights come from ``checkpoint_path``
+(``{checkpoint_path}/e5.safetensors``, the bare ``init_bert`` tree, as the
+JAX embedder restores it) or are seeded (``seed``), as the JAX embedder
+starts without files, and are stored in bf16. Batches and lengths pad to
+the same power-of-two buckets as the JAX program (−1 padding doubles as
+the mask).
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from audio_rag_tpu_torch.checkpoint import restore_params
 from audio_rag_tpu_torch.config import EmbeddingConfig
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import EmbeddingResult
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.embeddings.bge import _bucket
@@ -31,6 +34,7 @@ from audio_rag_tpu_torch.resources.estimates import e5_gb
 from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, pad_batch
 from audio_rag_tpu_torch.utils.decorators import timed
+from audio_rag_tpu_torch.weights import e5_params
 
 __all__ = ["E5Embedder", "e5_forward"]
 
@@ -59,7 +63,8 @@ class E5Embedder:
         #: the manager's booking: the bf16 weights
         self.hbm_required_gb = e5_gb(self.dims)
         self._params = None
-        self._tok = get_tokenizer(self.dims.vocab)
+        self._tok = get_tokenizer(self.config.checkpoint_path,
+                                  self.dims.vocab)
 
     @property
     def is_loaded(self) -> bool:
@@ -68,17 +73,17 @@ class E5Embedder:
     def load(self) -> None:
         if self.is_loaded:
             return
-        if self.config.checkpoint_path:
-            raise ConfigError(
-                "embedding.checkpoint_path: converted E5 checkpoints are "
-                "not ported (no converted checkpoint is in the repository)",
-                context={"checkpoint_path": self.config.checkpoint_path})
         rm = get_resource_manager()
         rm.ensure_hbm(self.hbm_required_gb, for_model="embeddings")
-        gen = torch.Generator(device=self.device).manual_seed(
-            self.config.seed)
-        self._params = get_engine(self.device).put_params(
-            "e5", init_bert(self.dims, gen, self.device, torch.bfloat16))
+        tree = (restore_params(self.config.checkpoint_path, "e5")
+                if self.config.checkpoint_path else None)
+        if tree is not None:
+            params = e5_params(tree, self.dims, self.device, torch.bfloat16)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.config.seed)
+            params = init_bert(self.dims, gen, self.device, torch.bfloat16)
+        self._params = get_engine(self.device).put_params("e5", params)
         rm.register_model("embeddings", self.hbm_required_gb, self)
 
     def unload(self) -> None:

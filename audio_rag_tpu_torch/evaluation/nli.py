@@ -5,22 +5,32 @@ A 3-class XLM-R-style classification head
 (:func:`audio_rag_tpu_torch.models.cross_encoder.nli_forward`, roberta-mnli
 label order [contradiction, neutral, entailment]) run in f32 over
 ``<s> premise </s></s> hypothesis </s>`` rows, padded with −1 to a pow-2
-length bucket (16 up to ``max_len``). Weights: the committed tiny asset
-``nli_small.npz`` for ``model`` "auto" or "tiny"; seeded random weights at
-the ``test`` preset for ``model="random"``; a missing asset otherwise
-raises ``FileNotFoundError``, as in the JAX package. Checkpoints
-(``checkpoint_path``) are not ported and raise ``ConfigError``.
+length bucket (16 up to ``max_len``). Weights, by precedence: a converted
+3-label checkpoint (``{checkpoint_path}/nli.safetensors``, any
+XLMRobertaForSequenceClassification MNLI model through
+``convert_reranker``) at xlmr-base's heads, vocabulary and pad id, its
+width, depth, feed-forward and position table read from the tree (the JAX
+scorer keeps xlmr-base's dims whatever the tree holds, which runs only
+where they agree); the committed tiny asset ``nli_small.npz`` for
+``model`` "auto" or "tiny"; seeded random weights at the ``test`` preset
+for ``model="random"``; nothing found otherwise raises
+``FileNotFoundError``, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
-from audio_rag_tpu_torch.core.exceptions import ConfigError
+from audio_rag_tpu_torch.checkpoint import (
+    ASSETS_DIR,
+    load_npz_asset,
+    restore_params,
+)
 from audio_rag_tpu_torch.device import resolve_device
-from audio_rag_tpu_torch.models.bert import BERT_PRESETS
+from audio_rag_tpu_torch.models.bert import BERT_PRESETS, BertDims
 from audio_rag_tpu_torch.models.cross_encoder import (
     init_cross_encoder,
     nli_forward,
@@ -35,6 +45,18 @@ CONTRADICTION, NEUTRAL, ENTAILMENT = 0, 1, 2
 _ASSET = ASSETS_DIR / "nli_small.npz"
 
 
+def _checkpoint_dims(tree: dict) -> BertDims:
+    """xlmr-base's dims with the width, depth, feed-forward width and
+    position table of a converted tree."""
+    base = BERT_PRESETS["xlmr-base"]
+    pos = np.shape(tree["bert"]["pos_emb"]["table"])[0]
+    up = tree["bert"]["blocks"]["mlp"]["up"]["w"]
+    n_layers, d_model, d_ff = np.shape(up)
+    return dataclasses.replace(base, d_model=int(d_model),
+                               n_layers=int(n_layers), d_ff=int(d_ff),
+                               max_len=int(pos) - base.pos_offset)
+
+
 class NLIScorer:
     """entailment(premise, hypothesis) → P(entailment) in [0, 1]."""
 
@@ -42,13 +64,16 @@ class NLIScorer:
                  checkpoint_path: str | None = None,
                  max_length: int = 256,
                  device: str | torch.device = "cuda"):
-        if checkpoint_path:
-            raise ConfigError(
-                "NLI checkpoints (restore_params) are not ported; leave "
-                "checkpoint_path unset",
-                context={"checkpoint_path": checkpoint_path})
         self.max_length = max_length
         self.device = resolve_device(device)
+        tree = (restore_params(checkpoint_path, "nli") if checkpoint_path
+                else None)
+        if tree is not None:
+            self.dims = _checkpoint_dims(tree)
+            self._params = cross_encoder_params(tree, self.dims, self.device)
+            self._tok = get_tokenizer(checkpoint_path,
+                                      vocab_size=self.dims.vocab)
+            return
         tree = (load_npz_asset(_ASSET) if model in ("auto", "tiny")
                 else None)
         if tree is not None:
@@ -62,9 +87,11 @@ class NLIScorer:
             # random weights would give meaningless entailment numbers;
             # the evaluator falls back to the relevance proxy instead
             raise FileNotFoundError(
-                "no NLI weights: nli_small.npz is missing (train it with "
-                "scripts/train_nli.py) and checkpoints are not ported")
-        self._tok = get_tokenizer(vocab_size=self.dims.vocab)
+                "no NLI weights: pass checkpoint_path (convert any "
+                "XLMRobertaForSequenceClassification mnli model with "
+                "convert_reranker) or run scripts/train_nli.py")
+        self._tok = get_tokenizer(checkpoint_path,
+                                  vocab_size=self.dims.vocab)
 
     @torch.inference_mode()
     def probs(self, premises: list[str], hypotheses: list[str]) -> np.ndarray:

@@ -21,11 +21,11 @@ step's linears once at load (int4 beating int8). A greedy single-row wave
 under ``speculative_k`` runs the speculative program
 (:func:`~audio_rag_tpu_torch.models.llm.llm_speculative_generate`, the
 same tokens) and leaves its drafter's figures in ``last_spec_stats``, as
-the JAX generator does. "eval-small" loads the committed trained asset and
-its tokenizer side file (and raises when the asset is missing); other
-presets start from weights seeded on the device.
-
-Not ported, and raising ``ConfigError``: checkpoints. A failure raises;
+the JAX generator does. Weights: ``checkpoint_path``
+(``{checkpoint_path}/llm.safetensors`` from ``convert_llama``, at the
+preset's shapes), else, for "eval-small", the committed trained asset
+(raising when it is missing), else weights seeded on the device;
+"eval-small" also reads its tokenizer side file. A failure raises;
 nothing falls back.
 """
 
@@ -37,7 +37,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from audio_rag_tpu_torch.checkpoint import ASSETS_DIR
+from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, restore_params
 from audio_rag_tpu_torch.config import GenerationConfig
 from audio_rag_tpu_torch.core.exceptions import ConfigError, GenerationError
 from audio_rag_tpu_torch.device import resolve_device
@@ -56,7 +56,7 @@ from audio_rag_tpu_torch.resources.estimates import llm_gb
 from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, load_reverse_map
 from audio_rag_tpu_torch.utils.decorators import timed
-from audio_rag_tpu_torch.weights import load_llm_small
+from audio_rag_tpu_torch.weights import convert_llm, load_llm_small
 
 __all__ = ["LLMGenerator"]
 
@@ -103,14 +103,14 @@ class LLMGenerator:
     def load(self) -> None:
         if self.is_loaded:
             return
-        if self.config.checkpoint_path:
-            raise ConfigError(
-                "LLM checkpoints (restore_params) are not ported; leave "
-                "checkpoint_path unset",
-                context={"checkpoint_path": self.config.checkpoint_path})
+        ckpt = self.config.checkpoint_path
+        tok = get_tokenizer(ckpt, vocab_size=self.dims.vocab)
         rm = get_resource_manager()
         rm.ensure_hbm(self.hbm_required_gb, for_model="generation")
-        if self.model == "eval-small":
+        tree = restore_params(ckpt, "llm") if ckpt else None
+        if tree is not None:
+            params = convert_llm(tree, self.dims, self.device, self.dtype)
+        elif self.model == "eval-small":
             params = load_llm_small(self.device, self.dtype)
             if params is None:
                 raise ConfigError(
@@ -125,7 +125,6 @@ class LLMGenerator:
         if self._qbits:
             q8 = quantize_llm_weights(params, self.dims, self._qbits,
                                       lm_head_bits=self._lm_head_bits)
-        tok = get_tokenizer(vocab_size=self.dims.vocab)
         if self.model == "eval-small":
             # the trained asset's emittable words: a fresh process decodes
             # only ids it has encoded without them

@@ -9,24 +9,31 @@ all windows of a call. The convolutions are library calls (cuDNN at f32,
 with TF32 off; an im2col product with an f32 output at bf16): no TPU
 kernel lies on this path.
 
-Weights: the committed trained assets ``speaker_small.npz`` and
-``vad_small.npz`` (read in place through :mod:`audio_rag_tpu_torch
+Encoder weights, by precedence (:func:`resolve_speaker_params`): a
+converted checkpoint (``checkpoint_path``: an ECAPA-TDNN from
+``convert_speaker``, run by :mod:`audio_rag_tpu_torch.models.ecapa`, or a
+TDNN tree of this module's layout), the committed trained asset
+``speaker_small.npz`` (read in place through :mod:`audio_rag_tpu_torch
 .checkpoint`), else a seeded init from an explicit ``torch.Generator``.
-Converted titanet/ECAPA checkpoints (the JAX package's ``models/ecapa.py``)
-are not ported: asking for one raises.
+The VAD reads ``vad_small.npz``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
-from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
-from audio_rag_tpu_torch.core.exceptions import ConfigError
+from audio_rag_tpu_torch.checkpoint import (
+    ASSETS_DIR,
+    load_npz_asset,
+    restore_params,
+)
 from audio_rag_tpu_torch.device import full_f32_conv, full_f32_matmul
+from audio_rag_tpu_torch.models.ecapa import ecapa_emb_dim, is_ecapa_params
 from audio_rag_tpu_torch.models.layers import (
     Params,
     layer_norm,
@@ -34,6 +41,8 @@ from audio_rag_tpu_torch.models.layers import (
     mm_f32,
     mm_out_f32,
 )
+
+log = logging.getLogger(__name__)
 
 __all__ = [
     "SpeakerDims",
@@ -155,15 +164,14 @@ def speaker_embed(params: Params, dims: SpeakerDims, mel: torch.Tensor,
 
 # -- trained-asset resolution ---------------------------------------------
 
-def _is_ecapa(tree: Any) -> bool:
-    return isinstance(tree, dict) and "layers" in tree and "fc" in tree
-
-
 def speaker_dims_from_params(params: Params) -> SpeakerDims:
-    """:class:`SpeakerDims` from a TDNN tree's shapes (tensors or arrays)."""
-    if _is_ecapa(params):
-        raise ConfigError("ECAPA speaker trees need models/ecapa.py, which "
-                          "the port does not have")
+    """:class:`SpeakerDims` from a TDNN or ECAPA tree's shapes (tensors
+    or arrays)."""
+    if is_ecapa_params(params):
+        k, n_mels, channels = params["frontend"]["conv"]["w"].shape
+        return SpeakerDims(int(n_mels), int(channels),
+                           len(params["layers"]), ecapa_emb_dim(params),
+                           int(k))
     blocks = params["blocks"]
     k, n_mels, channels = blocks[0]["conv"]["w"].shape
     return SpeakerDims(int(n_mels), int(channels), len(blocks),
@@ -187,18 +195,23 @@ def resolve_speaker_params(checkpoint_path: str | None, dims: SpeakerDims,
                            allow_asset: bool = True,
                            device: str | torch.device = "cpu",
                            ) -> tuple[SpeakerDims, Params, str]:
-    """Encoder weights by precedence: the committed asset, else a seeded
-    init. Returns (dims, params on ``device``, source); the dims follow the
-    weights, not the preset. ``allow_asset=False`` (the "test" preset)
-    keeps the seeded tiny encoder. A converted checkpoint is refused: its
-    reader and the ECAPA encoder are not ported."""
-    from audio_rag_tpu_torch.weights import speaker_params
+    """Encoder weights by precedence: a converted checkpoint
+    (``{checkpoint_path}/speaker.safetensors``; a missing one warns and
+    falls through), the committed asset, else a seeded init. Returns
+    (dims, params on ``device``, source); the dims follow the weights, not
+    the preset. ``allow_asset=False`` (the "test" preset) keeps the seeded
+    tiny encoder."""
+    from audio_rag_tpu_torch.weights import ecapa_params, speaker_params
 
     if checkpoint_path:
-        raise ConfigError(
-            "speaker checkpoints (convert_speaker, models/ecapa.py) are not "
-            "ported; leave checkpoint_path unset to use the trained asset",
-            context={"checkpoint_path": checkpoint_path})
+        tree = restore_params(checkpoint_path, "speaker")
+        if tree is not None:
+            dims = speaker_dims_from_params(tree)
+            params = (ecapa_params(tree, device) if is_ecapa_params(tree)
+                      else speaker_params(tree, dims, device))
+            return dims, params, "checkpoint"
+        log.warning("speaker checkpoint missing at %s; falling back",
+                    checkpoint_path)
     if allow_asset:
         asset = load_speaker_asset()
         if asset is not None:

@@ -8,7 +8,9 @@ back as they are. The same hash tokenizer and pair layout, the same
 batch and length buckets (−1 padding doubles as the mask), bf16 storage
 and compute. "eval-small" loads the committed trained asset
 (``retr_reranker_small.npz``); other models start from seeded weights at
-their preset. Unlike the JAX reranker, a failure to score raises: it does
+their preset. ``checkpoint_path`` (``{checkpoint_path}/
+reranker.safetensors`` from ``convert_reranker``, at the preset's shapes)
+comes first. Unlike the JAX reranker, a failure to score raises: it does
 not fall back to the retrieval order.
 """
 
@@ -17,9 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
+from audio_rag_tpu_torch.checkpoint import (
+    ASSETS_DIR,
+    load_npz_asset,
+    restore_params,
+)
 from audio_rag_tpu_torch.config import RerankingConfig
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import RetrievalResult
 from audio_rag_tpu_torch.device import resolve_device
 from audio_rag_tpu_torch.engine.engine import get_engine, peek_engine
@@ -28,7 +33,7 @@ from audio_rag_tpu_torch.models.cross_encoder import (
     cross_encoder_forward,
     init_cross_encoder,
 )
-from audio_rag_tpu_torch.text.tokenizer import HashWordTokenizer, pad_batch
+from audio_rag_tpu_torch.text.tokenizer import get_tokenizer, pad_batch
 from audio_rag_tpu_torch.resources.estimates import cross_encoder_gb
 from audio_rag_tpu_torch.resources.manager import get_resource_manager
 from audio_rag_tpu_torch.weights import cross_encoder_params
@@ -62,7 +67,8 @@ class BGEReranker:
         #: the manager's booking: the bf16 weights
         self.hbm_required_gb = cross_encoder_gb(self.dims)
         self._params = None
-        self._tok = HashWordTokenizer(self.dims.vocab)
+        self._tok = get_tokenizer(self.config.checkpoint_path,
+                                  self.dims.vocab)
         #: compute dtype: bf16, as the JAX reranker; f32 (the stored bf16
         #: weights widen exactly) lets a check see past bf16 rounding
         self.dtype = torch.bfloat16
@@ -74,15 +80,12 @@ class BGEReranker:
     def load(self) -> None:
         if self.is_loaded:
             return
-        if self.config.checkpoint_path:
-            raise ConfigError(
-                "reranker checkpoints (restore_params) are not ported; "
-                "leave checkpoint_path unset",
-                context={"checkpoint_path": self.config.checkpoint_path})
         rm = get_resource_manager()
         rm.ensure_hbm(self.hbm_required_gb, for_model="reranking")
         tree = None
-        if self.config.model == "eval-small":
+        if self.config.checkpoint_path:
+            tree = restore_params(self.config.checkpoint_path, "reranker")
+        if tree is None and self.config.model == "eval-small":
             tree = load_npz_asset(ASSETS_DIR / "retr_reranker_small.npz")
         if tree is not None:
             params = cross_encoder_params(tree, self.dims, self.device,

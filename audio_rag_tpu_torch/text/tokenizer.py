@@ -5,7 +5,10 @@ included, and the generator's reverse-map side file.
 
 Equal words map to equal ids, stable across processes and across the two
 packages, so the port's sparse/lexical retrieval matches the JAX package's
-token for token.
+token for token. The JAX package reads a checkpoint directory's
+HuggingFace tokenizer files through ``transformers``; the port has no
+reader of them yet, so :func:`get_tokenizer` refuses a directory that
+holds some rather than tokenize otherwise than the JAX package would.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["HashWordTokenizer", "get_tokenizer", "load_reverse_map",
+from audio_rag_tpu_torch.core.exceptions import ConfigError
+
+__all__ = ["TOKENIZER_PATTERNS", "HashWordTokenizer", "get_tokenizer",
+           "load_reverse_map", "refuse_tokenizer_files",
            "norm_tokens", "pad_batch"]
 
 _WORD_RE = re.compile(r"[a-z0-9]+(?:'[a-z]+)?")
@@ -97,9 +103,33 @@ class HashWordTokenizer:
         return out[:max_len]
 
 
-def get_tokenizer(vocab_size: int = 30000) -> HashWordTokenizer:
-    """The hash tokenizer of ``vocab_size`` ids (the JAX package's
-    ``get_tokenizer`` without a checkpoint directory)."""
+#: the files of a HuggingFace tokenizer, which the port cannot read yet
+TOKENIZER_PATTERNS = ("tokenizer*.json", "vocab*", "merges.txt", "*.model")
+
+
+def refuse_tokenizer_files(checkpoint_path: str | Path | None) -> None:
+    """Raise ``ConfigError`` when a checkpoint directory holds
+    HuggingFace tokenizer files: the JAX package would tokenize (or
+    decode) with them, and the port cannot read them yet."""
+    if not checkpoint_path or not Path(checkpoint_path).is_dir():
+        return
+    found = sorted({f.name for pat in TOKENIZER_PATTERNS
+                    for f in Path(checkpoint_path).glob(pat)})
+    if found:
+        raise ConfigError(
+            f"{checkpoint_path} holds HuggingFace tokenizer files "
+            f"({', '.join(found)}), which the port cannot read yet "
+            "(ROADMAP.md §1 item 2): it would tokenize otherwise than the "
+            "JAX package. Remove them to use the hash tokenizer",
+            context={"checkpoint_path": str(checkpoint_path)})
+
+
+def get_tokenizer(checkpoint_path: str | Path | None = None,
+                  vocab_size: int = 30000) -> HashWordTokenizer:
+    """The hash tokenizer of ``vocab_size`` ids, as the JAX package's
+    ``get_tokenizer`` gives without tokenizer files; a checkpoint
+    directory that holds some raises (:func:`refuse_tokenizer_files`)."""
+    refuse_tokenizer_files(checkpoint_path)
     return HashWordTokenizer(vocab_size)
 
 

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
+from audio_rag_tpu_torch.checkpoint import flatten_tree as _flatten
+from audio_rag_tpu_torch.checkpoint import nest_tree as _nest
 from audio_rag_tpu_torch.models.bert import BertDims
 from audio_rag_tpu_torch.models.layers import q4_group
 from audio_rag_tpu_torch.models.llm import LLM_PRESETS, LLMDims
@@ -33,6 +35,7 @@ __all__ = [
     "e5_params",
     "cross_encoder_spec",
     "speaker_spec",
+    "ecapa_spec",
     "vad_spec",
     "llm_spec",
     "tts_spec",
@@ -43,6 +46,7 @@ __all__ = [
     "bgem3_params",
     "cross_encoder_params",
     "speaker_params",
+    "ecapa_params",
     "vad_params",
     "convert_llm",
     "load_llm_small",
@@ -51,31 +55,6 @@ __all__ = [
 ]
 
 Shape = tuple[int, ...]
-
-
-def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
-    """Slash-joined key → leaf; a list's items are keyed by their index."""
-    flat: dict[str, Any] = {}
-    for k, v in tree.items():
-        key = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, list):
-            v = {str(i): item for i, item in enumerate(v)}
-        if isinstance(v, dict):
-            flat.update(_flatten(v, key))
-        else:
-            flat[key] = v
-    return flat
-
-
-def _nest(flat: dict[str, Any]) -> dict:
-    tree: dict = {}
-    for key, value in flat.items():
-        node = tree
-        parts = key.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = value
-    return tree
 
 
 def _lin(prefix: str, L: int | None, din: int, dout: int,
@@ -178,6 +157,38 @@ def speaker_spec(dims: SpeakerDims) -> dict[str, Shape]:
     return spec
 
 
+def ecapa_spec(n_mels: int, channels: int, mfa: int, attn: int, se: int,
+               emb: int, scale: int, kernel: int = 3, n_layers: int = 3,
+               shortcuts: frozenset[int] = frozenset()) -> dict[str, Shape]:
+    """Slash-joined key → shape of every leaf of an ECAPA tree
+    (``convert_speaker`` / ``init_ecapa`` layout, lists keyed by index;
+    ``shortcuts``: the layers with a shortcut convolution)."""
+    def tdnn(prefix: str, k: int, c_in: int, c_out: int) -> dict[str, Shape]:
+        return {f"{prefix}/conv/w": (k, c_in, c_out),
+                f"{prefix}/conv/b": (c_out,),
+                f"{prefix}/bn/s": (c_out,), f"{prefix}/bn/o": (c_out,)}
+
+    width = channels // scale
+    spec = tdnn("frontend", 5, n_mels, channels)
+    for i in range(n_layers):
+        p = f"layers/{i}"
+        spec.update(tdnn(f"{p}/tdnn1", 1, channels, channels))
+        for j in range(scale - 1):
+            spec.update(tdnn(f"{p}/res2net/{j}", kernel, width, width))
+        spec.update(tdnn(f"{p}/tdnn2", 1, channels, channels))
+        spec.update(_lin(f"{p}/se/c1", None, channels, se))
+        spec.update(_lin(f"{p}/se/c2", None, se, channels))
+        if i in shortcuts:
+            spec[f"{p}/shortcut/w"] = (1, channels, channels)
+            spec[f"{p}/shortcut/b"] = (channels,)
+    spec.update(tdnn("mfa", 1, n_layers * channels, mfa))
+    spec.update(tdnn("asp/tdnn", 1, 3 * mfa, attn))
+    spec.update(_lin("asp/conv", None, attn, mfa))
+    spec.update({"asp_bn/s": (2 * mfa,), "asp_bn/o": (2 * mfa,)})
+    spec.update(_lin("fc", None, 2 * mfa, emb))
+    return spec
+
+
 def vad_spec(n_mels: int = 80, channels: int = 64) -> dict[str, Shape]:
     """Slash-joined key → shape of every leaf of a VAD tree."""
     spec: dict[str, Shape] = {"c1/w": (5, n_mels, channels),
@@ -234,9 +245,10 @@ def _to_tensor(arr: Any, device: torch.device,
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
+    t = t.to(device)
     if dtype is not None and t.dtype != dtype:
-        t = t.float().to(dtype)  # f16 → bf16 goes through f32, as in JAX
-    return t.to(device)
+        t = t.float().to(dtype)  # f16 → bf16: exact to f32, one rounding
+    return t
 
 
 def _check_keys(flat: dict[str, Any], spec: dict[str, Shape],
@@ -309,6 +321,43 @@ def speaker_params(tree: dict, dims: SpeakerDims,
     a list or keyed by index) → tensors, blocks as a list."""
     out = _float_tree(tree, speaker_spec(dims), "speaker", device, dtype)
     out["blocks"] = [out["blocks"][str(i)] for i in range(dims.n_blocks)]
+    return out
+
+
+def ecapa_params(tree: dict, device: str | torch.device = "cpu",
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """An ECAPA tree (``convert_speaker`` layout, its lists as lists or
+    keyed by index) → tensors, lists as lists; the widths follow the
+    frontend, the layers, the SE, ``mfa``, ``asp`` and ``fc`` weights."""
+    flat = _flatten(tree)
+
+    def shape(key: str, n: int) -> tuple[int, ...]:
+        got = tuple(np.shape(flat.get(key, ())))
+        if len(got) != n:
+            raise KeyError(f"ECAPA tree: {key} has shape {got}, expected "
+                           f"{n} dims")
+        return got
+
+    _, n_mels, channels = shape("frontend/conv/w", 3)
+    n_layers = len({k.split("/")[1] for k in flat
+                    if k.startswith("layers/")})
+    scale = 1 + len({k.split("/")[3] for k in flat
+                     if k.startswith("layers/0/res2net/")})
+    kernel = shape("layers/0/res2net/0/conv/w", 3)[0]
+    se = shape("layers/0/se/c1/w", 2)[1]
+    mfa = shape("mfa/conv/w", 3)[2]
+    attn = shape("asp/tdnn/conv/w", 3)[2]
+    emb = shape("fc/w", 2)[1]
+    shortcuts = frozenset(i for i in range(n_layers)
+                          if f"layers/{i}/shortcut/w" in flat)
+    spec = ecapa_spec(n_mels, channels, mfa, attn, se, emb, scale, kernel,
+                      n_layers, shortcuts)
+    out = _float_tree(_nest(flat), spec, "ECAPA", device, dtype)
+    layers = [out["layers"][str(i)] for i in range(n_layers)]
+    for layer in layers:
+        layer["res2net"] = [layer["res2net"][str(j)]
+                            for j in range(scale - 1)]
+    out["layers"] = layers
     return out
 
 

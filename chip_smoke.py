@@ -271,6 +271,30 @@ subset):
               fourth loss below the first (step seconds, peak memory).
               Only ``flash_attention`` may launch, 3 a tiny-synth step and
               32 a large-v3 step.
+18. convert — converted checkpoints, the directories written by the
+              tests' HF-layout writers (``tests/torch_hf_layout.py``;
+              ``transformers`` is not needed): (a) the ``full`` phase's
+              seeded large-v3 as one F16 ``model.safetensors`` in HF layout
+              (3.1 GB), classified and converted by the port
+              (``audio_rag_tpu_torch.convert``), every converted leaf the
+              F16-rounded source bit for bit, then ``WhisperASR`` through
+              ``checkpoint_path`` in the production decode profile on 16
+              windows of the ``full`` phase's speech: the tokens of
+              ``WhisperASR(weights=<the F16 tree>)``, flash (all wgmma),
+              ``matmul_q8w`` and cross q8 launched, no plain version;
+              write, convert, save and load seconds and GB/s, peak device
+              and host memory; (b) an ECAPA-TDNN at the voxceleb release's
+              widths as a speechbrain ``embedding_model.ckpt`` (BatchNorm
+              statistics), converted, and the ``diarize`` phase's 3-voice
+              conversation through ``ClusteringDiarizer(checkpoint_path=
+              ...)`` on the card and the CPU: embeddings within 1e-4, the
+              same segments, ms per window batch; (c)
+              ``scripts/load_real_torch.py`` on the card over
+              ``test_load_real.py``'s tiny directories (every kind
+              converted, chunks, query results, the evaluation sweep), and
+              the converted tied and untied Llama's decode step through
+              ``matmul_q8w`` (decoder_int8) against the CPU within 5 % of
+              the logits' range.
 
 The native audio runtime (``audio_rag_tpu_torch/csrc/audio_native.cpp``,
 g++ into ``build/native/``) is built or loaded right after the kernels;
@@ -280,7 +304,7 @@ C. ``diarize`` runs right after ``spine``, ``fallback`` after ``diarize``,
 after ``answer``, ``profiles`` after ``stream``, ``queue`` after
 ``profiles`` (it needs profiles' pipeline), ``api`` after ``queue`` (on
 profiles' pipeline too), ``eval`` after ``api``, ``train`` after
-``eval``.
+``eval``, ``convert`` after ``train``.
 At each phase's end the device-memory manager unloads what it booked and
 a fresh manager and engine replace it (:func:`free_card`). The
 ``answer`` phase's
@@ -2172,9 +2196,11 @@ def check_llm_launches(tag: str, launches: dict, steps: int,
              "decode steps")
 
 
-def first_step_logits(torch, inner, prompts) -> object:
+def first_step_logits(torch, inner, prompts, device: str = "cuda",
+                      token=None) -> object:
     """Prefill ``prompts`` as the generator batches them, then one decode
-    step with its quantized weights: the step's f32 logits."""
+    step with its quantized weights, fed the prefill's best token (or
+    ``token``, one a row): the step's f32 logits."""
     import numpy as np
 
     from audio_rag_tpu_torch.models.llm import llm_decode_step, llm_forward
@@ -2186,17 +2212,19 @@ def first_step_logits(torch, inner, prompts) -> object:
     mask = np.zeros((B, P), bool)
     for i, s in enumerate(seqs):
         toks[i, P - len(s):], mask[i, P - len(s):] = s, True
-    toks, mask = torch.from_numpy(toks).cuda(), torch.from_numpy(mask).cuda()
+    toks = torch.from_numpy(toks).to(device)
+    mask = torch.from_numpy(mask).to(device)
     C, hd = P + 1, dims.d_model // dims.n_heads
     cache = [torch.zeros((dims.n_layers, B, dims.n_kv_heads, C, hd),
-                         dtype=inner.dtype, device="cuda") for _ in range(2)]
+                         dtype=inner.dtype, device=device) for _ in range(2)]
     valid = torch.cat([mask, torch.ones((B, 1), dtype=torch.bool,
-                                        device="cuda")], 1)
+                                        device=device)], 1)
     pos = torch.clamp(torch.cumsum(mask.long(), 1) - 1, min=0)
     logits, _ = llm_forward(inner._params, dims, toks, 0, tuple(cache),
                             inner.dtype, kv_valid=valid, pos_ids=pos,
-                            last_pos=torch.full((B,), P - 1, device="cuda"))
-    tok = logits[:, -1].argmax(-1)
+                            last_pos=torch.full((B,), P - 1, device=device))
+    tok = (logits[:, -1].argmax(-1) if token is None
+           else torch.as_tensor(token, device=device))
     step, *_ = llm_decode_step(
         inner._params, dims, tok, P, *cache, kv_valid=valid,
         dtype=inner.dtype, rope_pos=mask.long().sum(1),
@@ -4886,16 +4914,17 @@ def phase_eval(torch, K, device: str = "cuda", n: int = EVAL_N,
 
 
 def large_v3_config(device: str, profile: str, window_batch: int,
-                    **asr_fields):
+                    model_size: str = "large-v3", **asr_fields):
     """The large-v3 paths' config: greedy at temperature 0 in English, as
-    ``bench.py`` measures it, unless ``asr_fields`` say otherwise."""
+    ``bench.py`` measures it, unless ``asr_fields`` say otherwise (another
+    ``model_size`` rehearses a path on the CPU)."""
     from audio_rag_tpu_torch.config import (
         ASRConfig, AudioRAGConfig, ChunkingConfig, EmbeddingConfig,
         RerankingConfig)
 
     fields = {"language": "en", "temperature_fallback": False, **asr_fields}
     return AudioRAGConfig(
-        asr=ASRConfig(model_size="large-v3", compute_type="bfloat16",
+        asr=ASRConfig(model_size=model_size, compute_type="bfloat16",
                       window_batch_size=window_batch, max_decode_tokens=32,
                       seed=0, vad_filter=False, **fields,
                       **PROFILES[profile][0]),
@@ -5735,16 +5764,336 @@ def phase_train(torch, K) -> dict:
     return {"launches": by_path, "flash_grad": rows}
 
 
+# -- phase 18: converted checkpoints ------------------------------------------
+
+CONVERT_WINDOWS = 16  # large-v3 windows transcribed from the converted file
+ECAPA_RELEASE = {"n_mels": 80, "channels": 1024, "mfa": 3072, "attn": 128,
+                 "se": 128, "emb": 192, "scale": 8}  # spkrec-ecapa-voxceleb
+ECAPA_TOL = 1e-4  # an f32 speaker embedding, card against CPU
+STEP_TOKENS = [5, 9, 13, 17]  # the converted Llama's decode step's inputs
+
+
+def hf_layout():
+    """The HF-layout directory writers the tests use
+    (``tests/torch_hf_layout.py``) and ``scripts/load_real_torch.py``."""
+    for sub in ("tests", "scripts"):
+        if str(ROOT / sub) not in sys.path:
+            sys.path.insert(0, str(ROOT / sub))
+    import load_real_torch
+    import torch_hf_layout
+
+    return torch_hf_layout, load_real_torch
+
+
+def host_peak_gb() -> float:
+    """This process's peak resident host memory."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def f16_tree(torch, tree: dict) -> dict:
+    """The same tree with every leaf rounded to f16, on the host."""
+    return {k: f16_tree(torch, v) if isinstance(v, dict)
+            else v.to(torch.float16).cpu() for k, v in tree.items()}
+
+
+def f16_mismatches(tree: dict, ref: dict) -> list[str]:
+    """Keys of the converted (numpy) tree whose leaf is not the f16
+    tensor of ``ref`` bit for bit, or is missing."""
+    import numpy as np
+
+    bad = []
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            bad += [f"{k}/{b}" for b in f16_mismatches(tree.get(k, {}), v)]
+            continue
+        got, want = tree.get(k), v.numpy()
+        if (got is None or got.dtype != np.float16 or got.shape != want.shape
+                or not np.array_equal(got.view(np.uint16),
+                                      want.view(np.uint16))):
+            bad.append(k)
+    return bad
+
+
+def convert_large_v3(torch, K, workdir: Path, device: str = "cuda",
+                     preset: str = "large-v3") -> dict:
+    """(a) the seeded large-v3 (the ``full`` phase's seed) written as one
+    F16 ``model.safetensors`` in HF layout, classified, converted, held
+    to the F16-rounded source bit for bit, then loaded through
+    ``checkpoint_path`` in the production decode profile: 16 windows of
+    the ``full`` phase's speech, tokens equal to ``WhisperASR(weights=)``
+    on the same F16 tree; returns the main run's launches. ``device`` and
+    ``preset`` rehearse it on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from audio_rag_tpu_torch.asr.whisper import WhisperASR
+    from audio_rag_tpu_torch.checkpoint import save_params
+    from audio_rag_tpu_torch.convert import convert_whisper, tree_bytes
+    from audio_rag_tpu_torch.models.whisper import (
+        WHISPER_PRESETS, init_whisper)
+    from audio_rag_tpu_torch.ops.mel import HOP_LENGTH, SAMPLE_RATE
+
+    layout, load_real = hf_layout()
+    dims = WHISPER_PRESETS[preset]
+    tag = f"convert[{preset}]"
+    cuda = device == "cuda"
+    src = init_whisper(dims, seed=0, device=device, dtype=torch.bfloat16)
+    hf_dir, ckpt = workdir / f"whisper-{preset}", workdir / "whisper_ck"
+    sync(torch, device)
+    t0 = time.perf_counter()
+    layout.write_whisper(src, hf_dir, dims, np.float16)
+    write_s = time.perf_counter() - t0
+    nbytes = (hf_dir / "model.safetensors").stat().st_size
+    if load_real.classify(hf_dir) != "whisper":
+        fail(f"{tag}: the directory does not classify as whisper")
+    t0 = time.perf_counter()
+    tree = convert_whisper(hf_dir)
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_params(ckpt, "whisper", tree)
+    save_s = time.perf_counter() - t0
+    src = f16_tree(torch, src)  # the F16-rounded source, on the host
+    if cuda:
+        free_card(torch)
+    bad = f16_mismatches(tree, src)
+    if bad:
+        fail(f"{tag}: converted leaves differ from the F16-rounded source: "
+             f"{bad[:8]}")
+    tree_gb = tree_bytes(tree) / 1e9
+    del tree
+    window = 2 * dims.n_audio_ctx * HOP_LENGTH
+    wav = long_speech(CONVERT_WINDOWS * window / SAMPLE_RATE)
+    cfg = large_v3_config(device, "int8", 16, model_size=preset)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    asr = WhisperASR(dataclasses.replace(cfg.asr, checkpoint_path=str(ckpt)),
+                     device=device)
+    t0 = time.perf_counter()
+    asr.load()
+    sync(torch, device)
+    load_s = time.perf_counter() - t0
+    asr.transcribe(wav[:window], SAMPLE_RATE)  # first calls, not counted
+    sync(torch, device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with plain_calls(K, K.KERNELS) as plain:
+        got = [x.text for x in asr.transcribe(wav, SAMPLE_RATE)]
+        sync(torch, device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(K)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    asr.unload()
+    del asr
+    ref = WhisperASR(cfg.asr, device=device, weights=src)
+    want = [x.text for x in ref.transcribe(wav, SAMPLE_RATE)]
+    ref.unload()
+    del ref, src
+    if cuda:
+        free_card(torch)
+    out = {"file_gb": nbytes / 1e9, "tree_gb": tree_gb,
+           "write_s": write_s, "write_gb_per_s": nbytes / 1e9 / write_s,
+           "convert_s": convert_s,
+           "convert_gb_per_s": nbytes / 1e9 / convert_s,
+           "save_s": save_s, "save_gb_per_s": nbytes / 1e9 / save_s,
+           "load_s": load_s, "load_gb_per_s": nbytes / 1e9 / load_s,
+           "transcribe_ms": ms, "windows": CONVERT_WINDOWS,
+           "segments": len(got), "peak_mem_gb": peak,
+           "host_peak_gb": host_peak_gb(), "plain_calls": dict(plain),
+           "launches": launches}
+    print(tag, json.dumps(out), f"({card_line()})", flush=True)
+    if got != want or not got:
+        fail(f"{tag}: the converted checkpoint's transcripts differ from "
+             f"WhisperASR(weights=) on the same F16 tree ({len(got)} and "
+             f"{len(want)} segments)")
+    if cuda:
+        if any(plain.values()):
+            fail(f"{tag}: plain versions ran on the card: {dict(plain)}")
+        check_launches(tag, launches, PROFILES["int8"][1],
+                       encoder_calls=32 * -(-CONVERT_WINDOWS // 16))
+    return launches
+
+
+def convert_ecapa(torch, workdir: Path, widths: dict = ECAPA_RELEASE,
+                  devices: tuple[str, str] = ("cuda", "cpu")) -> dict:
+    """(b) a seeded ECAPA-TDNN at the voxceleb release's widths as a
+    speechbrain ``embedding_model.ckpt`` (BatchNorm running statistics
+    included), converted, then the ``diarize`` phase's 3-voice
+    conversation through ``ClusteringDiarizer(checkpoint_path=...)`` on
+    the card and on the CPU: the same windows, embeddings within 1e-4,
+    the same segments. ``widths`` and ``devices`` rehearse it on the
+    CPU."""
+    import numpy as np
+
+    from audio_rag_tpu_torch.audio.synth import conversation, sample_voice
+    from audio_rag_tpu_torch.config import DiarizationConfig
+    from audio_rag_tpu_torch.convert import convert_dir
+    from audio_rag_tpu_torch.diarization.clustering import ClusteringDiarizer
+
+    layout, load_real = hf_layout()
+    tag = "convert[ecapa]"
+    src = workdir / "spkrec-ecapa-voxceleb"
+    state = layout.speechbrain_ecapa_state(torch.Generator().manual_seed(0),
+                                           **widths)
+    layout.write_ecapa(state, src)
+    if load_real.classify(src) != "speaker":
+        fail(f"{tag}: the directory does not classify as speaker")
+    t0 = time.perf_counter()
+    convert_dir("speaker", src, workdir / "speaker_ck")
+    convert_s = time.perf_counter() - t0
+    rng = np.random.default_rng(2024)
+    voices = [sample_voice(rng) for _ in range(3)]
+    audio, _ = conversation(rng, voices, duration_s=50.0)
+    runs = []
+    for device in devices:
+        d = ClusteringDiarizer(DiarizationConfig(
+            checkpoint_path=str(workdir / "speaker_ck"),
+            vad_backend="energy"), device=device)
+        d.load()
+        if d.source != "checkpoint" or d.dims.channels != widths["channels"]:
+            fail(f"{tag}: the diarizer did not load the converted ECAPA "
+                 f"({d.source}, {d.dims})")
+        d._spans_and_embeddings(audio, 16_000)  # first calls, not timed
+        _, starts, emb = d._spans_and_embeddings(audio, 16_000)
+        timings = dict(d.timings)
+        segs = d.diarize(audio, 16_000, num_speakers=3)
+        runs.append({"starts": starts, "emb": emb, "timings": timings,
+                     "segments": [(x.start, x.end, x.speaker)
+                                  for x in segs]})
+        d.unload()
+    card, cpu = runs
+    err = float(np.abs(card["emb"] - cpu["emb"]).max())
+    batches = -(-len(card["starts"]) // 512)
+    out = {"params_m": sum(v.numel() for v in state.values()) / 1e6,
+           "convert_s": convert_s, "windows": len(card["starts"]),
+           "embed_ms": card["timings"]["embed_s"] * 1e3,
+           "embed_ms_per_window_batch": card["timings"]["embed_s"] * 1e3
+           / batches, "cpu_embed_ms": cpu["timings"]["embed_s"] * 1e3,
+           "max_abs_err": err, "tol": ECAPA_TOL,
+           "segments": len(card["segments"]),
+           "speakers": len({x[2] for x in card["segments"]})}
+    print(tag, json.dumps(out), f"({card_line()})", flush=True)
+    if card["starts"] != cpu["starts"] or not err <= ECAPA_TOL:
+        fail(f"{tag}: card embeddings differ from the CPU's ({err})")
+    if card["segments"] != cpu["segments"] or not card["segments"]:
+        fail(f"{tag}: card segments differ from the CPU's")
+    return out
+
+
+def convert_rehearsal(torch, K, workdir: Path, device: str = "cuda") -> dict:
+    """(c) ``scripts/load_real_torch.py`` on the card over
+    ``test_load_real.py``'s tiny directories (with the evaluation
+    sweep), then the converted tied and untied Llama's first decode
+    step through ``matmul_q8w`` in the answer phase's profile
+    (decoder_int8, bf16), card against CPU; returns launches by path.
+    ``device`` "cpu" rehearses it."""
+    import io
+
+    from audio_rag_tpu_torch.config import GenerationConfig
+    from audio_rag_tpu_torch.convert import convert_dir
+    from audio_rag_tpu_torch.generation.llm import LLMGenerator
+    from audio_rag_tpu_torch.models.llm import LLM_PRESETS, init_llm
+
+    layout, load_real = hf_layout()
+    tag = "convert[rehearsal]"
+    models = layout.write_test_models(workdir / "tiny")
+    K.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with plain_calls(K, K.KERNELS) as plain, contextlib.redirect_stdout(buf):
+        rc = load_real.main([str(models), "--out", str(workdir / "conv"),
+                             "--collection", "rehearsal",
+                             *(["--cpu"] if device == "cpu" else [])])
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches = {"convert_rehearsal": launch_counts(K)}
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    kinds = {x["kind"] for x in lines if "converted" in x}
+    ingest = [x for x in lines if "ingested" in x]
+    query = [x for x in lines if "query_results" in x]
+    ev = [x["evaluation"] for x in lines if "evaluation" in x]
+    print(tag, json.dumps({"rc": rc, "s": wall, "kinds": sorted(kinds),
+                           "ingest": ingest, "query": query,
+                           "evaluation": ev, "plain_calls": dict(plain),
+                           "launches": launches["convert_rehearsal"]}),
+          flush=True)
+    if (rc != 0 or kinds != {"whisper", "llama", "bgem3", "reranker",
+                             "speaker"}
+            or not ingest or ingest[0]["chunks"] <= 0
+            or not query or query[0]["query_results"] <= 0
+            or not ev or set(ev[0]) != {"dense", "hybrid"}):
+        fail(f"{tag}: the rehearsal did not convert, ingest, query and "
+             f"evaluate every kind: {lines}")
+    if device == "cuda":
+        if any(plain.values()):
+            fail(f"{tag}: plain versions ran on the card: {dict(plain)}")
+        check_launches(tag, launches["convert_rehearsal"], {FLASH})
+        free_card(torch, "convert rehearsal")
+
+    dims = LLM_PRESETS["test"]
+    for tied in (False, True):
+        name = "llama-" + ("tied" if tied else "untied")
+        tree = init_llm(dims, torch.Generator().manual_seed(5),
+                        torch.float32)
+        if tied:
+            tree["lm_head"]["w"] = tree["tok_emb"]["table"].T.contiguous()
+        layout.write_llama(tree, workdir / name, dims, tied=tied)
+        convert_dir("llama", workdir / name, workdir / f"{name}_ck")
+        cfg = GenerationConfig(model="test", decoder_int8=True,
+                               checkpoint_path=str(workdir / f"{name}_ck"))
+        gens = {dev: LLMGenerator(cfg, device=dev) for dev in (device, "cpu")}
+        for g in gens.values():
+            g.load()
+        prompts = ANSWER_QUESTIONS[:4]  # within the test preset's window
+        K.reset_launches()
+        with plain_calls(K, K.KERNELS) as plain:
+            got = first_step_logits(torch, gens[device], prompts, device,
+                                    token=STEP_TOKENS)
+            sync(torch, device)
+        launches[f"convert_{name}"] = launch_counts(K)
+        ref = first_step_logits(torch, gens["cpu"], prompts, device="cpu",
+                                token=STEP_TOKENS)
+        check_logits(f"convert[{name}]", [got.float().cpu()], [ref.float()])
+        if device == "cuda":
+            if any(plain.values()):
+                fail(f"convert[{name}]: plain versions ran on the card: "
+                     f"{dict(plain)}")
+            check_launches(f"convert[{name}]", launches[f"convert_{name}"],
+                           {Q8W})
+        for g in gens.values():
+            g.unload()
+    return launches
+
+
+def phase_convert(torch, K) -> dict:
+    """(a) large-v3 from a converted F16 checkpoint, (b) ECAPA at the
+    release widths, (c) the rehearsal and the converted Llama; returns
+    launches by path."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path = {"convert": convert_large_v3(torch, K, Path(tmp) / "a")}
+        free_card(torch)
+        convert_ecapa(torch, Path(tmp) / "b")
+        free_card(torch)
+        by_path.update(convert_rehearsal(torch, K, Path(tmp) / "c"))
+    print(f"convert phase_s {time.perf_counter() - t_phase:.1f} "
+          f"({card_line()})", flush=True)
+    return by_path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,spine,diarize,fallback,query,"
                             "answer,stream,profiles,queue,api,eval,train,"
-                            "full,full_kv4,capacity,beam",
+                            "convert,full,full_kv4,capacity,beam",
                     help="comma-separated subset of build,kernels,spine,"
                          "diarize,fallback,query,answer,stream,profiles,"
-                         "queue,api,eval,train,full,full_kv4,capacity,beam "
-                         "(queue and api need profiles)")
+                         "queue,api,eval,train,convert,full,full_kv4,"
+                         "capacity,beam (queue and api need profiles)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -5832,6 +6181,9 @@ def main() -> None:
         trained = phase_train(torch, K)
         by_path.update(trained["launches"])
         flash_grad = trained["flash_grad"]
+    if "convert" in phases:
+        by_path.update(phase_convert(torch, K))
+        free_card(torch, "convert")
     if "full" in phases:
         by_path["full"] = phase_full(torch, K, "full", "int8", 16, 16)
         free_card(torch, "full")  # two large-v3 copies need not coexist

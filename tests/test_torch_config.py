@@ -433,10 +433,11 @@ def test_environment_is_read_at_each_call(monkeypatch):
 
 
 def test_unported_values_load_and_raise_where_used(tmp_path):
-    """The fake store and checkpoint paths load (as the schema holds them)
-    and raise ``ConfigError`` where used; a TTS backend without its engine
-    falls back as in the JAX package; resources load and raise
-    nowhere."""
+    """The fake store and checkpoint paths load (as the schema holds them);
+    the store raises ``ConfigError`` where used, and a checkpoint path
+    without the model's file falls back to the backend's own weights, as
+    in the JAX package; a TTS backend without its engine falls back as in
+    the JAX package; resources load and raise nowhere."""
     from audio_rag_tpu_torch.asr.whisper import WhisperASR
     from audio_rag_tpu_torch.embeddings.bge import BGEM3Embedder
     from audio_rag_tpu_torch.embeddings.e5 import E5Embedder
@@ -462,8 +463,11 @@ def test_unported_values_load_and_raise_where_used(tmp_path):
     for make in (lambda: WhisperASR(cfg.asr, device="cpu"),
                  lambda: BGEM3Embedder(cfg.embedding, device="cpu"),
                  lambda: E5Embedder(cfg.embedding, device="cpu")):
-        with pytest.raises(ConfigError, match="not ported"):
-            make().load()
+        backend = make()
+        assert backend.config.checkpoint_path == "/x"
+        backend.load()  # no "/x/<name>.safetensors": the seeded weights
+        assert backend.is_loaded
+        backend.unload()
     cfg.retrieval.backend = "fake"
     with pytest.raises(ConfigError, match="not registered"):
         AudioRAG(cfg)

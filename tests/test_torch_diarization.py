@@ -242,9 +242,10 @@ def test_diarizer_on_the_gap_audio_and_refusals(audios):
     assert d.diarize(np.zeros(SR, np.float32), SR) == []
     with pytest.raises(ConfigError, match="backend"):
         DiarizationConfig(backend="nemo")
-    with pytest.raises(ConfigError, match="ecapa"):
-        ClusteringDiarizer(DiarizationConfig(checkpoint_path="/x"),
-                           device="cpu").load()
+    missing = ClusteringDiarizer(DiarizationConfig(checkpoint_path="/x"),
+                                 device="cpu")
+    missing.load()  # no /x/speaker.safetensors: the trained asset
+    assert missing.source == "asset"
     import torch
     if not torch.cuda.is_available():
         with pytest.raises(ConfigError, match="CUDA is not available"):

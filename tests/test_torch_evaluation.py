@@ -24,7 +24,6 @@ from audio_rag_tpu.evaluation import metrics as jmetrics
 from audio_rag_tpu.evaluation import wer as jwer
 from audio_rag_tpu.pipeline.orchestrator import AudioRAG as JaxAudioRAG
 from audio_rag_tpu_torch.config import load_config
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.core.types import EmbeddingResult, RetrievalResult
 from audio_rag_tpu_torch.core.types import TranscriptSegment
 from audio_rag_tpu_torch.evaluation import dataset as tdataset
@@ -299,7 +298,8 @@ def test_nli_matches_jax(nli_pair):
 def test_nli_random_weights_and_refusals(monkeypatch):
     """``model="random"`` runs the ``test`` preset: with the JAX init
     carried across, the same probabilities; a missing asset raises
-    ``FileNotFoundError`` and a checkpoint ``ConfigError``."""
+    ``FileNotFoundError``, with a checkpoint path that holds no
+    ``nli.safetensors`` too, as in the JAX package."""
     import jax
 
     from audio_rag_tpu.evaluation.nli import NLIScorer as JaxNLI
@@ -317,7 +317,7 @@ def test_nli_random_weights_and_refusals(monkeypatch):
     monkeypatch.setattr(tnli, "_ASSET", ROOT / "no-such-asset.npz")
     with pytest.raises(FileNotFoundError):
         tnli.NLIScorer(device="cpu")
-    with pytest.raises(ConfigError, match="not ported"):
+    with pytest.raises(FileNotFoundError):  # nor a checkpoint, as in JAX
         tnli.NLIScorer(checkpoint_path="/x", device="cpu")
     ev = tmetrics.RAGEvaluator(device="cpu")
     assert ev.nli is None  # the relevance proxy takes over, with a warning

@@ -125,13 +125,15 @@ def test_entry_points_refuse_a_missing_card(no_cuda):
 
 # -- import isolation ---------------------------------------------------------------
 
-#: what the port, ``chip_smoke.py`` and the API clients it shares with the
+#: what the port, ``chip_smoke.py`` and the helpers it shares with the
 #: tests never import: JAX, the JAX package, and what the card's machine
 #: lacks (PyYAML: the port reads its profiles with its own reader; the web
 #: stack the JAX API's reference was built on: the port's server is the
-#: standard library's)
+#: standard library's; the checkpoint stack the JAX converters use: the
+#: port reads and writes safetensors itself and has no HF tokenizer)
 FORBIDDEN = {"jax", "jaxlib", "audio_rag_tpu", "yaml", "pydantic", "httpx",
-             "websockets", "fastapi", "uvicorn", "starlette"}
+             "websockets", "fastapi", "uvicorn", "starlette", "safetensors",
+             "transformers", "tokenizers", "orbax", "speechbrain"}
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -178,7 +180,9 @@ def test_sources_of_port_and_chip_smoke_import_no_jax():
              ROOT / "scripts" / "run_torch.py",
              ROOT / "scripts" / "eval_torch.py",
              ROOT / "scripts" / "train_asr_torch.py",
+             ROOT / "scripts" / "load_real_torch.py",
              ROOT / "tests" / "torch_api_client.py",
+             ROOT / "tests" / "torch_hf_layout.py",
              *sorted((ROOT / "audio_rag_tpu_torch").rglob("*.py"))]
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN

@@ -18,7 +18,6 @@ from audio_rag_tpu.audio.synth import conversation, sample_voice
 from audio_rag_tpu.models import speaker as js
 from audio_rag_tpu.ops import mel as jmel
 from audio_rag_tpu_torch.checkpoint import ASSETS_DIR, load_npz_asset
-from audio_rag_tpu_torch.core.exceptions import ConfigError
 from audio_rag_tpu_torch.models import speaker as ts
 from audio_rag_tpu_torch.ops import mel as tmel
 from audio_rag_tpu_torch.weights import (
@@ -210,11 +209,15 @@ def test_vad_tree_carry_over():
 
 
 def test_resolution_refuses_what_is_not_ported(speaker):
+    from audio_rag_tpu_torch.models.ecapa import init_ecapa
+
     dims = ts.SPEAKER_PRESETS["titanet-jax"]
-    with pytest.raises(ConfigError, match="ecapa"):
-        ts.resolve_speaker_params("/some/checkpoint", dims)
-    with pytest.raises(ConfigError, match="ecapa"):
-        ts.speaker_dims_from_params({"layers": [], "fc": {}})
+    # a checkpoint path without speaker.safetensors falls back, as in JAX
+    got_dims, _, source = ts.resolve_speaker_params("/some/checkpoint", dims)
+    assert (got_dims, source) == (speaker[0], "asset")
+    # ECAPA trees are read (models/ecapa.py is ported)
+    assert ts.speaker_dims_from_params(init_ecapa()) == ts.SpeakerDims(
+        80, 64, 3, 24, 5)
     got_dims, params, source = ts.resolve_speaker_params(None, dims)
     assert (got_dims, source) == (speaker[0], "asset")
     test_dims, _, source = ts.resolve_speaker_params(
